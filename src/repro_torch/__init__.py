@@ -1,0 +1,27 @@
+"""PyTorch/CUDA port of the ``repro`` package, slice by slice.
+
+Serving comes first: the block-paged continuous-batching engine
+(``repro_torch.serve.engine.ServeEngine(paged=True)``) over the
+attention-only Transformer, with decode attention on a hand-written Hopper
+kernel (``repro_torch.kernels.paged_decode``).  Module names follow the JAX
+package so each counterpart is easy to find; parameters keep its nested-dict
+layout (``repro_torch.interop`` moves them across).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; a
+CUDA entry point with no card raises instead of falling back to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; raises if it names CUDA and there is
+    no usable card, so no entry point silently carries on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            f"is False; pass device='cpu' to run the plain PyTorch path")
+    return device

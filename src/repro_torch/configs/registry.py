@@ -1,0 +1,47 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution.
+
+Only the architectures the port can run are registered.  The JAX package's
+other ids are known by name so that asking for one says it is not ported
+yet rather than that it does not exist.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = {
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+}
+
+# Registered in the JAX package, waiting for their sub-blocks to be ported
+# (M-RoPE, MoE, SSD, RG-LRU, encoder front-ends; ROADMAP queue 1).
+NOT_PORTED = (
+    "qwen2-vl-72b", "recurrentgemma-9b", "mamba2-370m", "hubert-xlarge",
+    "qwen3-14b", "nemotron-4-340b", "qwen1.5-4b", "kimi-k2-1t-a32b",
+    "phi3.5-moe-42b-a6.6b",
+)
+
+
+def list_archs():
+    return list(ARCHS)
+
+
+def _module(arch):
+    if arch in NOT_PORTED:
+        raise KeyError(f"arch {arch!r} is not ported to PyTorch yet; ported: "
+                       f"{sorted(ARCHS)} (see ROADMAP.md queue 1)")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    return importlib.import_module(ARCHS[arch])
+
+
+def get_config(arch):
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch):
+    return _module(arch).SMOKE
+
+
+def get_family(arch):
+    return _module(arch).FAMILY

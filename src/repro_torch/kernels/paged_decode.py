@@ -1,0 +1,147 @@
+"""Hand-written Hopper kernel for block-paged decode attention.
+
+``csrc/paged_decode.cu`` (the counterpart of the TPU kernel
+``repro/kernels/swa_decode.py::paged_decode``) is compiled at first use by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface under
+``build/kernels/`` at the repository root, and bound with ``ctypes``.  The
+library's name carries a hash of the source and flags, so an edited source
+is rebuilt.  Nothing is built or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the paged_decode kernel is built from source")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel library if this source has not been built yet;
+    returns its path.  A failed build raises with nvcc's output.  With
+    ``verbose`` the compiler's resource report (``-Xptxas -v``) is printed."""
+    src = _SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"paged_decode_{tag}.so"
+    if lib.exists() and not verbose:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", tmp, str(_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, end="")
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = ctypes.CDLL(str(build()))
+    fn = lib.paged_decode
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_pool, v_pool, pt, pos, window):
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode runs on CUDA tensors, got {q.device}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool), ("pt", pt),
+                    ("pos", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_decode takes float32 or bfloat16, got {q.dtype}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"pools ({k_pool.dtype}, {v_pool.dtype}) must match "
+                        f"q's dtype {q.dtype}")
+    if pt.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"pt and pos must be int32, got {pt.dtype}, {pos.dtype}")
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k_pool "
+                         f"{tuple(k_pool.shape)}, v_pool {tuple(v_pool.shape)}")
+    b, n, g, d = q.shape
+    if k_pool.shape[2:] != (n, d):
+        raise ValueError(f"pool rows {tuple(k_pool.shape[2:])} != (N, D) "
+                         f"{(n, d)}")
+    if pt.dim() != 2 or pt.shape[0] != b or pos.shape != (b,):
+        raise ValueError(f"pt {tuple(pt.shape)} / pos {tuple(pos.shape)} do "
+                         f"not match batch {b}")
+    if not 1 <= g <= 32 or d % 32 or d > 256:
+        raise ValueError(f"kernel needs 1 <= G <= 32 and D a multiple of 32 "
+                         f"up to 256, got G={g}, D={d}")
+    ps, pp = k_pool.shape[1], pt.shape[1]
+    smem = 4 * (2 * ps * (d + 1) + g * d + g * ps + pp)
+    if smem > 48 * 1024:
+        raise ValueError(f"page of {ps} rows x {d} with a {pp}-page table "
+                         f"needs {smem} B of shared memory, over the 48 KiB "
+                         f"the kernel asks for")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("pt", pt), ("pos", pos)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned (rows are read "
+                         "with 16-byte loads)")
+
+
+def paged_decode(q, k_pool, v_pool, pt, pos, *, window=None):
+    """Decode attention of one token per slot over a block-paged pool.
+
+    q (B, N, G, D) in f32 or bf16; k/v_pool (P, ps, N, D) of q's dtype; pt
+    (B, PP) int32 page table; pos (B,) int32 positions, each >= 0.  Returns
+    (B, N, G, D) in q's dtype.  Launches on the current stream without
+    synchronising; every launch adds one to ``paged_decode.launches``."""
+    _check(q, k_pool, v_pool, pt, pos, window)
+    b, n, g, d = q.shape
+    out = torch.empty_like(q)
+    fn = _library()
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             pt.data_ptr(), pos.data_ptr(), out.data_ptr(),
+             b, n, g, d, k_pool.shape[0], k_pool.shape[1], pt.shape[1],
+             window or 0, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
+    paged_decode.launches += 1
+    return out
+
+
+paged_decode.launches = 0

@@ -1,0 +1,319 @@
+"""Decoder LM over stacked per-layer parameters: the block-paged serving
+path of ``repro.models.transformer``.
+
+Parameters are nested dicts of tensors with the JAX package's key names,
+shapes and layouts: sub-blocks of the ``block_pattern`` live under
+``params["blocks"]["b{i}"]`` stacked on a leading layer axis (a Python loop
+over that axis replaces ``lax.scan``), remainder layers under
+``"tail{j}"``.  Only attention sub-blocks with a dense MLP are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.nn import attention as attn_lib
+from repro_torch.nn import layers as L
+
+NEG_INF = -1e30
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+_NOT_PORTED = "not ported yet (ROADMAP.md queue 1)"
+
+
+def pad_vocab(v: int, multiple: int = 256) -> int:
+    return ((v + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """The fields of the JAX ``LMConfig`` that the attention-only serving
+    path reads."""
+
+    name: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    block_pattern: tuple = ("attn",)
+    mlp: str = "swiglu"              # "swiglu" | "gelu" | "squared_relu" | "none"
+    norm: str = "rmsnorm"            # "rmsnorm" | "layernorm"
+    causal: bool = True
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope: str = "rope"               # "rope" | "none"
+    rope_theta: float = 10000.0
+    window: Optional[int] = None     # window for "local" attention sub-blocks
+    sliding_window: Optional[int] = None  # if set, ALL attention is windowed
+    is_encoder: bool = False
+    dtype: str = "bfloat16"          # activation dtype
+    param_dtype: str = "bfloat16"
+    ring_cache: bool = False
+    q_chunk: int = 512
+    vocab_pad: int = 256
+
+    @property
+    def hd(self):
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab(self):
+        return pad_vocab(self.vocab_size, self.vocab_pad)
+
+    @property
+    def n_super(self):
+        return self.num_layers // len(self.block_pattern)
+
+    @property
+    def n_tail(self):
+        return self.num_layers % len(self.block_pattern)
+
+    @property
+    def adt(self):
+        return DTYPES[self.dtype]
+
+    @property
+    def pdt(self):
+        return DTYPES[self.param_dtype]
+
+    def attn_cfg(self, local: bool) -> attn_lib.AttnConfig:
+        window = self.sliding_window or (self.window if local else None)
+        return attn_lib.AttnConfig(
+            d_model=self.d_model, num_heads=self.num_heads,
+            kv_heads=self.kv_heads, head_dim=self.hd, causal=self.causal,
+            window=window, qk_norm=self.qk_norm, qkv_bias=self.qkv_bias,
+            rope=self.rope, rope_theta=self.rope_theta, q_chunk=self.q_chunk)
+
+
+# ---------------------------------------------------------------------------
+# Sub-blocks
+# ---------------------------------------------------------------------------
+
+def _norm_apply(cfg, p, x):
+    if cfg.norm == "layernorm":
+        return L.layernorm(p, x)
+    return L.rmsnorm(p, x)
+
+
+def _dense_mlp_apply(cfg: LMConfig, p, x):
+    up = L.dense(p["up"], x)
+    if "gate" in p:
+        h = L.swiglu(L.dense(p["gate"], x), up)
+    elif cfg.mlp == "squared_relu":
+        h = L.squared_relu(up)
+    else:
+        h = L.gelu(up)
+    return L.dense(p["down"], h)
+
+
+def _mlp_apply(cfg: LMConfig, p, x):
+    """Returns (y, aux_loss); MoE is not ported yet."""
+    if cfg.mlp == "none":
+        return torch.zeros_like(x), 0.0
+    if cfg.mlp == "moe":
+        raise NotImplementedError(f"MoE is {_NOT_PORTED}")
+    return _dense_mlp_apply(cfg, p, x), 0.0
+
+
+def _assert_pageable(cfg: LMConfig):
+    """Paged KV caching covers attention state only: recurrent sub-blocks
+    carry dense per-slot state (no pages to share), and ring caches already
+    bound their own memory."""
+    if any(k not in ("attn", "local") for k in cfg.block_pattern):
+        raise ValueError(
+            f"paged KV cache needs an attention-only block_pattern; "
+            f"{cfg.block_pattern} has recurrent sub-blocks")
+    if cfg.ring_cache:
+        raise ValueError("paged KV cache and ring_cache are exclusive — "
+                         "the page pool replaces the ring buffer")
+
+
+def _paged_subblock_decode(cfg: LMConfig, kind: str, p, pool, pt, x, pos,
+                           positions, active, page_size):
+    h = _norm_apply(cfg, p["ln1"], x)
+    y, pool = attn_lib.paged_decode_step(
+        p["mixer"], cfg.attn_cfg(kind == "local"), pool, pt, h, pos,
+        positions, active, page_size=page_size)
+    x = x + y
+    if cfg.mlp != "none":
+        m, _ = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+        x = x + m
+    return x, pool
+
+
+def _index(tree, i):
+    """Layer ``i`` of a stacked parameter or pool subtree (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _sub_blocks(cfg: LMConfig, params, caches):
+    """(kind, layer params, layer pool) in layer order: stacked super-blocks
+    first, then the tail."""
+    pat = cfg.block_pattern
+    for layer in range(cfg.n_super):
+        for i, kind in enumerate(pat):
+            yield (kind, _index(params["blocks"][f"b{i}"], layer),
+                   _index(caches["blocks"][f"b{i}"], layer))
+    for j in range(cfg.n_tail):
+        yield pat[j % len(pat)], params[f"tail{j}"], caches[f"tail{j}"]
+
+
+# ---------------------------------------------------------------------------
+# Initialisation
+# ---------------------------------------------------------------------------
+
+def _norm_init(cfg: LMConfig, stack, device):
+    shape = (cfg.d_model,) if stack is None else (stack, cfg.d_model)
+    p = {"scale": torch.ones(shape, dtype=cfg.pdt, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=cfg.pdt, device=device)
+    return p
+
+
+def _subblock_init(cfg: LMConfig, kind: str, stack, draw):
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(f"sub-block {kind!r} is not ported yet")
+    sh = (lambda *s: s) if stack is None else (lambda *s: (stack, *s))
+    a = cfg.attn_cfg(kind == "local")
+    d, h, n, hd, ff = cfg.d_model, a.num_heads, a.kv_heads, a.head_dim, cfg.d_ff
+    std = 1.0 / math.sqrt(d)
+    mixer = {"wq": draw(sh(d, h, hd), std), "wk": draw(sh(d, n, hd), std),
+             "wv": draw(sh(d, n, hd), std), "wo": draw(sh(h, hd, d), std)}
+    full = lambda value, *s: torch.full(sh(*s), value, dtype=cfg.pdt,  # noqa: E731
+                                        device=draw.device)
+    if a.qkv_bias:
+        mixer.update(bq=full(0, h, hd), bk=full(0, n, hd), bv=full(0, n, hd))
+    if a.qk_norm:
+        mixer.update(q_norm=full(1, hd), k_norm=full(1, hd))
+    p = {"ln1": _norm_init(cfg, stack, draw.device), "mixer": mixer}
+    if cfg.mlp == "none":
+        return p
+    if cfg.mlp == "moe":
+        raise NotImplementedError(f"MoE is {_NOT_PORTED}")
+    mlp = {"up": {"w": draw(sh(d, ff), std)}}
+    if cfg.mlp == "swiglu":
+        mlp["gate"] = {"w": draw(sh(d, ff), std)}
+    mlp["down"] = {"w": draw(sh(ff, d), 1.0 / math.sqrt(ff))}
+    p["ln2"], p["mlp"] = _norm_init(cfg, stack, draw.device), mlp
+    return p
+
+
+class _Draw:
+    """Truncated-normal parameter draws from one seeded generator."""
+
+    def __init__(self, cfg: LMConfig, device, seed):
+        self.cfg, self.device = cfg, device
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def __call__(self, shape, std):
+        return L.trunc_normal(shape, std, self.cfg.pdt, self.device, self.gen)
+
+
+class Transformer:
+    """Namespace of functions over (cfg, params), as in the JAX package."""
+
+    @staticmethod
+    def init(cfg: LMConfig, seed: int = 0, *, device="cuda"):
+        """Random parameters with the JAX package's tree, shapes and init
+        distributions, drawn from a ``torch.Generator`` seeded with
+        ``seed`` on ``device`` (so the values differ from the JAX init)."""
+        if cfg.is_encoder:
+            raise NotImplementedError(f"encoder front-ends are {_NOT_PORTED}")
+        device = resolve_device(device)
+        draw = _Draw(cfg, device, seed)
+        p = {"embed": {"table": draw((cfg.padded_vocab, cfg.d_model), 0.02)}}
+        if cfg.n_super > 0:
+            p["blocks"] = {f"b{i}": _subblock_init(cfg, kind, cfg.n_super, draw)
+                           for i, kind in enumerate(cfg.block_pattern)}
+        for j in range(cfg.n_tail):
+            kind = cfg.block_pattern[j % len(cfg.block_pattern)]
+            p[f"tail{j}"] = _subblock_init(cfg, kind, None, draw)
+        p["ln_f"] = _norm_init(cfg, None, device)
+        p["unembed"] = {"w": draw((cfg.d_model, cfg.padded_vocab),
+                                  1.0 / math.sqrt(cfg.d_model))}
+        return p
+
+    # -- shared plumbing ----------------------------------------------------
+
+    @staticmethod
+    def _embed_inputs(cfg: LMConfig, params, batch):
+        x = L.embedding(params["embed"], batch["tokens"]).to(cfg.adt)
+        positions = batch.get("positions")
+        if positions is None:
+            bsz, slen = x.shape[0], x.shape[1]
+            positions = torch.arange(slen, dtype=torch.int32,
+                                     device=x.device).expand(bsz, slen)
+        return x, positions
+
+    @staticmethod
+    def _unembed(cfg: LMConfig, params, x):
+        x = _norm_apply(cfg, params["ln_f"], x)
+        logits = L.dense(params["unembed"], x).float()
+        if cfg.padded_vocab != cfg.vocab_size:
+            logits[..., cfg.vocab_size:] = NEG_INF
+        return logits
+
+    # -- block-paged decode path (the paged ServeEngine) ---------------------
+
+    @staticmethod
+    def init_paged_cache(cfg: LMConfig, num_pages, page_size, *, device):
+        """Per-layer physical page pools in the tree shape of the params
+        ((layers, P, ps, N, D) under "blocks", (P, ps, N, D) for tails).
+        One page table indexes every layer's pool."""
+        _assert_pageable(cfg)
+        kw = dict(dtype=cfg.adt, device=device)
+        caches = {}
+        if cfg.n_super > 0:
+            caches["blocks"] = {
+                f"b{i}": attn_lib.init_paged_cache(
+                    cfg.attn_cfg(kind == "local"), num_pages, page_size,
+                    stack=cfg.n_super, **kw)
+                for i, kind in enumerate(cfg.block_pattern)}
+        for j in range(cfg.n_tail):
+            kind = cfg.block_pattern[j % len(cfg.block_pattern)]
+            caches[f"tail{j}"] = attn_lib.init_paged_cache(
+                cfg.attn_cfg(kind == "local"), num_pages, page_size, **kw)
+        return caches
+
+    @staticmethod
+    def paged_decode_step(cfg: LMConfig, params, caches, pt, token, pos,
+                          active=None, *, page_size):
+        """One token per slot against the paged pools (updated in place).
+        token: (B, 1) int; pos: (B,) int32; pt: (B, PP) int32; ``active``
+        (B,) bool redirects inactive rows' cache writes to the trash page."""
+        x, _ = Transformer._embed_inputs(cfg, params, {"tokens": token})
+        positions = pos[:, None]
+        for kind, p, pool in _sub_blocks(cfg, params, caches):
+            x, _ = _paged_subblock_decode(cfg, kind, p, pool, pt, x, pos,
+                                          positions, active, page_size)
+        return Transformer._unembed(cfg, params, x), caches
+
+    @staticmethod
+    def paged_prefill(cfg: LMConfig, params, batch, caches, pt, lengths,
+                      fill, n_prefix_pages, page_size):
+        """Prompt-suffix prefill into the paged pools (updated in place) for
+        one admission group sharing ``n_prefix_pages``.  ``batch["tokens"]``
+        holds the right-padded suffixes and ``batch["positions"]`` their
+        absolute positions; returns suffix logits and the pools."""
+        x, positions = Transformer._embed_inputs(cfg, params, batch)
+        for kind, p, pool in _sub_blocks(cfg, params, caches):
+            h = _norm_apply(cfg, p["ln1"], x)
+            y, _ = attn_lib.paged_prefill(
+                p["mixer"], cfg.attn_cfg(kind == "local"), h, positions,
+                pool, pt, lengths, fill, n_prefix_pages, page_size)
+            x = x + y
+            if cfg.mlp != "none":
+                m, _ = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+                x = x + m
+        return Transformer._unembed(cfg, params, x), caches

@@ -1,0 +1,400 @@
+"""Serving engine of the port: slot-based continuous batching over the
+block-paged KV pool, with bucketed batched prefill.
+
+The counterpart of ``repro.serve.engine.ServeEngine(paged=True)``.  Per-slot
+state (current token, position, budget, active flag, page table, page
+pools) lives on the engine's device; the host groups arrivals into
+admissions and pulls ``(emitted, done)`` once per tick.  Where JAX jits an
+admission step and a decode tick, the port runs the same functions eagerly.
+
+Slot lifecycle: free -> (prefill writes pages/token/pos/budget, first token
+from the prefill's own last-real-position logits) -> active decode ticks ->
+done (budget exhausted or ``pos == max_len - 1``) -> free.  Inactive slots
+ride along in the decode batch at a stale position; their K/V writes are
+redirected to the trash page and their outputs discarded.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.transformer import LMConfig, Transformer
+from repro_torch.serve.paged import PageAllocator, TRASH_PAGE, pages_for
+
+_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, slice 3: rest of serving)"
+
+
+def make_sampler(sample: str = "greedy", temperature: float = 1.0,
+                 top_k: int = 0):
+    """Token sampler over (B, V) logits: ``(logits, generator) -> (B,)
+    int32``.  ``greedy`` is exact argmax (first index on ties, as in JAX);
+    ``topk`` masks to the top-k logits and draws at ``temperature`` from
+    the engine's ``torch.Generator`` (other bits than ``jax.random``)."""
+    if sample == "greedy":
+        return lambda logits, generator: torch.argmax(
+            logits, dim=-1).to(torch.int32)
+    if sample != "topk":
+        raise ValueError(f"unknown sampler {sample!r}; known: greedy, topk")
+
+    def sampler(logits, generator):
+        lg = logits / max(temperature, 1e-6)
+        if top_k:
+            kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+            lg = lg.masked_fill(lg < kth, float("-inf"))
+        probs = torch.softmax(lg, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+            torch.int32)
+
+    return sampler
+
+
+def bucket_length(n: int, *, minimum: int = 8) -> int:
+    """Smallest power of two >= max(n, minimum) — the prefill length bucket."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def make_paged_admit_step(cfg: LMConfig, max_len: int, sampler, page_size: int):
+    """One batched admission of a group of slots sharing a prefix-hit depth
+    ``npp`` (pages already resident from the prefix cache).  ``prompts``
+    holds the right-padded prompt *suffixes*; the prefill scatters their
+    K/V into the slots' private pages and attends [shared prefix pages,
+    suffix] at absolute positions.  Returns the new slot state, the first
+    token per slot and the slots already done at admission."""
+
+    def admit(params, caches, pt, tokens, pos, budget, active,
+              prompts, lengths, max_news, fill, generator, *, npp):
+        b, length = prompts.shape
+        start = npp * page_size
+        positions = (start + torch.arange(length, dtype=torch.int32,
+                                          device=prompts.device)).expand(b, length)
+        logits, caches = Transformer.paged_prefill(
+            cfg, params, {"tokens": prompts, "positions": positions},
+            caches, pt, lengths, fill, npp, page_size)
+        rows = torch.arange(b, device=prompts.device)
+        last = logits[rows, (lengths - 1).clamp(min=0).long()]   # (S, V)
+        first = sampler(last, generator)                         # (S,)
+        tokens = torch.where(fill, first, tokens[:, 0])[:, None]
+        pos = torch.where(fill, start + lengths, pos)
+        budget = torch.where(fill, max_news - 1, budget)
+        done_now = fill & ((budget <= 0) | (pos >= max_len - 1))
+        active = (active | fill) & ~done_now
+        return tokens, caches, pos, budget, active, first, done_now
+
+    return admit
+
+
+def make_paged_decode_tick(cfg: LMConfig, max_len: int, sampler,
+                           page_size: int):
+    """One decode tick over all S slots: per-slot-position paged decode,
+    device-side sampling, budget/done bookkeeping.  Inactive rows' cache
+    writes go to the trash page (a freed slot's stale table may alias pages
+    since granted to another slot)."""
+
+    def tick(params, caches, pt, tokens, pos, budget, active, generator):
+        logits, caches = Transformer.paged_decode_step(
+            cfg, params, caches, pt, tokens, pos, active,
+            page_size=page_size)
+        nxt = sampler(logits[:, -1, :], generator)               # (S,)
+        act = active.to(torch.int32)
+        emitted = torch.where(active, nxt, tokens[:, 0])
+        pos = pos + act
+        budget = budget - act
+        done = active & ((budget <= 0) | (pos >= max_len - 1))
+        return emitted[:, None], caches, pos, budget, active & ~done, done
+
+    return tick
+
+
+def make_paged_init_state(cfg: LMConfig, slots: int, num_pages: int,
+                          page_size: int, pages_per_slot: int, device):
+    """Fresh slot state: zeroed pools, an all-trash page table, and idle
+    slots."""
+
+    def init():
+        caches = Transformer.init_paged_cache(cfg, num_pages, page_size,
+                                              device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        pt = torch.zeros((slots, pages_per_slot), **i32)
+        tokens = torch.zeros((slots, 1), **i32)
+        pos = torch.zeros((slots,), **i32)
+        budget = torch.zeros((slots,), **i32)
+        active = torch.zeros((slots,), dtype=torch.bool, device=device)
+        return tokens, caches, pt, pos, budget, active
+
+    return init
+
+
+class ServeEngine:
+    """Slot-based continuous batching with device-resident slot state over a
+    block-paged KV pool with prefix sharing::
+
+        engine = ServeEngine(cfg, params, slots=4, max_len=96, paged=True)
+        finished = engine.run(build_stream("poisson", 16, vocab=cfg.vocab_size))
+
+    ``params`` must live on ``device`` (default ``cuda``).  Only the paged
+    engine is ported: ``paged=False`` raises ``NotImplementedError``."""
+
+    def __init__(self, cfg: LMConfig, params, *, slots: int, max_len: int,
+                 sample: str = "greedy", temperature: float = 1.0,
+                 top_k: int = 0, seed: int = 0, min_bucket: int = 8,
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: int = None, device="cuda"):
+        if cfg.is_encoder:
+            raise ValueError("encoder-only arch has no decode step")
+        if not paged:
+            raise NotImplementedError(
+                f"the dense ServeEngine (paged=False) is {_NOT_PORTED}")
+        self.device = resolve_device(device)
+        table = params["embed"]["table"]
+        if table.device.type != self.device.type:
+            raise ValueError(f"params live on {table.device}, engine device "
+                             f"is {self.device}")
+        self.cfg, self.params = cfg, params
+        self.slots, self.max_len = slots, max_len
+        self.min_bucket = min_bucket
+        sampler = make_sampler(sample, temperature, top_k)
+        self._seed = seed
+        self._generator = torch.Generator(device=self.device)
+        self.page_size = page_size
+        self.pages_per_slot = pages_for(max_len, page_size)
+        # +1 for the trash page: with every unreferenced cached prefix
+        # evictable, the default pool can always grant what a free slot needs.
+        self.num_pages = num_pages or slots * self.pages_per_slot + 1
+        self._alloc = PageAllocator(self.num_pages, page_size)
+        self._admit_fn = make_paged_admit_step(cfg, max_len, sampler, page_size)
+        self._tick_fn = make_paged_decode_tick(cfg, max_len, sampler, page_size)
+        self._init_fn = make_paged_init_state(
+            cfg, slots, self.num_pages, page_size, self.pages_per_slot,
+            self.device)
+        self.reset()
+
+    @torch.inference_mode()
+    def reset(self):
+        (self.tokens, self.caches, self.pt, self.pos, self.budget,
+         self.active) = self._init_fn()
+        self._alloc.reset()
+        self._pt_host = np.zeros((self.slots, self.pages_per_slot), np.int32)
+        self._slot_adm = [None] * self.slots      # slot -> Admission | None
+        self._host_active = [None] * self.slots   # slot -> Request | None
+        self.ticks = 0
+        self.decode_ticks = 0    # ticks that ran the decode step
+        # a reset engine reproduces a fresh ServeEngine(seed=...)
+        self._generator.manual_seed(self._seed)
+        self._queue = []
+        self._finished = []
+        self._base = 0
+        self._now = 0
+        self._log = None
+
+    # -- not ported yet ------------------------------------------------------
+
+    def stage_params(self, params):
+        raise NotImplementedError(f"params hot-swap is {_NOT_PORTED}")
+
+    def commit_swap(self):
+        raise NotImplementedError(f"params hot-swap is {_NOT_PORTED}")
+
+    def hot_swap(self, params):
+        raise NotImplementedError(f"params hot-swap is {_NOT_PORTED}")
+
+    def carry(self):
+        raise NotImplementedError(f"engine carry/restore is {_NOT_PORTED}")
+
+    def restore(self, path, meta, requests):
+        raise NotImplementedError(f"engine carry/restore is {_NOT_PORTED}")
+
+    # -- bookkeeping ---------------------------------------------------------
+
+    def _bucket(self, prompt_len: int) -> int:
+        """Pow2 length bucket, capped at max_len."""
+        return min(bucket_length(prompt_len, minimum=self.min_bucket),
+                   self.max_len)
+
+    def cache_page_bytes(self) -> int:
+        """Bytes one physical page occupies summed over every layer's K and
+        V pool."""
+        return sum(t.numel() // self.num_pages * t.element_size()
+                   for t in _leaves(self.caches))
+
+    def resident_cache_bytes(self, peak: bool = True) -> int:
+        """Pages in use (or their high-water mark) times the page bytes."""
+        pages = self._alloc.peak if peak else self._alloc.in_use
+        return pages * self.cache_page_bytes()
+
+    def prefix_stats(self) -> dict:
+        a = self._alloc
+        return {"hits": a.hits, "misses": a.misses, "evictions": a.evictions,
+                "peak_pages": a.peak, "pages_in_use": a.in_use}
+
+    def _tensor(self, array):
+        return torch.tensor(array, device=self.device)
+
+    # -- admission -----------------------------------------------------------
+
+    def _post_admit(self, group, first, done_now, now, length, log):
+        """Pull (first, done) once, stamp the requests, finish the
+        already-done slots."""
+        first_np, done_np = torch.stack(
+            [first, done_now.to(torch.int32)]).cpu().numpy()
+        t_wall = time.perf_counter()
+        for slot, req in group:
+            req.out.append(int(first_np[slot]))
+            req.admitted_at = now
+            req.t_first = t_wall
+            self._host_active[slot] = req
+            if log:
+                log(f"[t={now}] admit r{req.rid} -> slot {slot} "
+                    f"(prompt {len(req.prompt)} pad {length})")
+            if done_np[slot]:
+                self._finish(slot, now, t_wall, log)
+
+    def _admit_paged(self, params, batch, now, log):
+        """Grant pages (consulting the prefix cache) per request, then run
+        one batched prefill per prefix-hit depth, shallower groups first so
+        that a same-tick deeper hit gathers pages a shallower admission just
+        wrote.  A request the pool cannot grant requeues with everything
+        behind it (FIFO order kept)."""
+        groups = {}
+        requeue = []
+        for idx, (slot, req) in enumerate(batch):
+            total = min(len(req.prompt) + req.max_new - 1, self.max_len - 1)
+            adm = self._alloc.admit(req.prompt, total)
+            if adm is None:
+                requeue = [r for _, r in batch[idx:]]
+                break
+            self._slot_adm[slot] = adm
+            self._pt_host[slot, :] = TRASH_PAGE
+            self._pt_host[slot, :len(adm.pages)] = adm.pages
+            req.prefix_pages = adm.shared
+            groups.setdefault(adm.shared, []).append((slot, req))
+        if requeue:
+            self._queue[:0] = requeue
+        if not groups:
+            return
+        self.pt = self._tensor(self._pt_host)
+        for npp in sorted(groups):
+            self._admit_group_paged(params, groups[npp], npp, now, log)
+
+    def _admit_group_paged(self, params, group, npp, now, log):
+        """One batched admission at prefix-hit depth ``npp``: rows carry the
+        prompt suffixes, right-padded to the suffix length bucket, at the
+        full slot batch."""
+        s = self.slots
+        start = npp * self.page_size
+        length = self._bucket(max(len(r.prompt) - start for _, r in group))
+        prompts = np.zeros((s, length), np.int32)
+        lengths = np.ones((s,), np.int32)
+        max_news = np.ones((s,), np.int32)
+        fill = np.zeros((s,), bool)
+        for slot, req in group:
+            sl = len(req.prompt) - start
+            prompts[slot, :sl] = req.prompt[start:]
+            lengths[slot], max_news[slot], fill[slot] = sl, req.max_new, True
+        (self.tokens, self.caches, self.pos, self.budget, self.active,
+         first, done_now) = self._admit_fn(
+            params, self.caches, self.pt, self.tokens, self.pos, self.budget,
+            self.active, self._tensor(prompts), self._tensor(lengths),
+            self._tensor(max_news), self._tensor(fill), self._generator,
+            npp=npp)
+        self._post_admit(group, first, done_now, now, length, log)
+
+    def _finish(self, slot, now, t_wall, log):
+        req = self._host_active[slot]
+        req.done_at, req.t_done = now, t_wall
+        self._host_active[slot] = None
+        self._finished.append(req)
+        # Cached prefix pages stay resident at refcount zero for later hits.
+        # The device table is refreshed at the next admission; until then
+        # the stale row only backs trash-redirected writes and masked reads.
+        self._alloc.release(self._slot_adm[slot])
+        self._slot_adm[slot] = None
+        self._pt_host[slot, :] = TRASH_PAGE
+        if log:
+            log(f"[t={now}] finish r{req.rid} ({len(req.out)} tokens)")
+
+    # -- the loop ------------------------------------------------------------
+
+    def begin(self, requests, log=None):
+        """Open a serving session over ``requests``; the caller advances it
+        one :meth:`tick` at a time.  Arrival ticks are relative to this
+        call."""
+        for r in requests:
+            if len(r.prompt) >= self.max_len:
+                raise ValueError(f"request {r.rid}: prompt length "
+                                 f"{len(r.prompt)} >= max_len {self.max_len}")
+        self._queue = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        self._finished = []
+        self._base = self.ticks
+        self._now = self.ticks
+        self._log = log
+
+    def pending(self) -> bool:
+        """True while the session has queued or in-flight requests."""
+        return bool(self._queue) or any(r is not None
+                                        for r in self._host_active)
+
+    @torch.inference_mode()
+    def tick(self):
+        """One iteration of the serving loop: stamp newly eligible arrivals,
+        admit them into free slots, run one decode tick over all slots
+        (skipped while none is active), advance the virtual clock.  Returns
+        the requests finished during this tick."""
+        params = self.params
+        log, now, base = self._log, self._now, self._base
+        queue = self._queue
+        n_done = len(self._finished)
+        # TTFT starts when a request becomes eligible, not at admission.
+        t_wall = time.perf_counter()
+        for r in queue:
+            if r.arrival + base <= now and r.t_enqueue < 0:
+                r.t_enqueue = t_wall
+            elif r.arrival + base > now:
+                break
+        free = [s for s in range(self.slots) if self._host_active[s] is None]
+        batch = []
+        while free and queue and queue[0].arrival + base <= now:
+            batch.append((free.pop(0), queue.pop(0)))
+        if batch:
+            self._admit_paged(params, batch, now, log)
+        if any(r is not None for r in self._host_active):
+            (self.tokens, self.caches, self.pos, self.budget,
+             self.active, done) = self._tick_fn(
+                params, self.caches, self.pt, self.tokens, self.pos,
+                self.budget, self.active, self._generator)
+            self.decode_ticks += 1
+            emitted_np, done_np = torch.stack(
+                [self.tokens[:, 0], done.to(torch.int32)]).cpu().numpy()
+            t_wall = time.perf_counter()
+            for s in range(self.slots):
+                req = self._host_active[s]
+                if req is None:
+                    continue
+                req.out.append(int(emitted_np[s]))
+                if done_np[s]:
+                    self._finish(s, now, t_wall, log)
+        self._now = now + 1
+        self.ticks = self._now
+        return self._finished[n_done:]
+
+    def run(self, requests, log=None):
+        """Serve ``requests`` to completion; returns them finished, with
+        per-request tick and wall-clock lifecycle stamps filled in."""
+        self.begin(requests, log=log)
+        while self.pending():
+            self.tick()
+        return self._finished
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
