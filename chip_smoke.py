@@ -3,21 +3,37 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (device 0) and ``nvcc``; builds the port's kernels from
-the sources in this checkout, then:
+the sources in this checkout (one ``nvcc`` per source, all started
+together), then:
 
-1. device   prints ``nvidia-smi``'s name and power limit and torch's view;
-2. kernel   holds ``paged_decode`` against its plain PyTorch version at the
-            serving shapes (bf16 and f32, with and without a window) and
-            times it (device time, replayed from a CUDA graph) beside the
-            plain version, one library call (``scaled_dot_product_attention``
-            on the gathered dense view, a yardstick the port never calls)
-            and its bytes bound;
-3. serve    serves 8 requests on 4 slots with Granite-3-2B at full width in
-            bf16 through the paged engine and checks that every decode
-            attention went through the kernel (launches == layers x ticks);
-4. parity   serves one stream with Granite SMOKE in f32 on the card and on
-            the CPU from the same weights and checks the greedy tokens match;
-5. kernels  prints one JSON line per the port's kernel table.
+1. device     prints ``nvidia-smi``'s name and power limit and torch's view;
+2. kernel     holds ``paged_decode`` against its plain PyTorch version at the
+              serving shapes (bf16 and f32, with and without a window) and
+              times it (device time, replayed from a CUDA graph) beside the
+              plain version, one library call (``scaled_dot_product_attention``
+              on the gathered dense view, a yardstick the port never calls)
+              and its bytes bound;
+3. serve      serves 8 requests on 4 slots with Granite-3-2B at full width in
+              bf16 through the paged engine and checks that every decode
+              attention went through the kernel (launches == layers x ticks);
+4. parity     serves one stream with Granite SMOKE in f32 on the card and on
+              the CPU from the same weights and checks the greedy tokens match;
+5. kd kernels holds ``kd_stats_fwd``/``kd_grad_bwd`` and ``ops.kd_loss``'s
+              loss and gradient against their plain versions at the FL main
+              path's shape (128 rows, 100 classes) and at an LLM shape (512
+              rows, Granite's 49,155-token vocabulary ending in -1e30 pad
+              columns, f32 and bf16) and times them beside the plain
+              versions and their bounds;
+6. fl         runs Algorithm 1 (``FederatedKD.run``) with ResNet-32 at full
+              width on CIFAR-shaped data (1 core + 3 edge silos of ~2,500
+              images), for kd, bkd and one bkd round with R=2 teachers, and
+              checks that every Phase-2 step went through both kernels;
+7. fl parity  runs the quickstart's MLP federation (f32, TF32 off) on the
+              card and on the CPU from one initial state: the first Phase-2
+              loss and the per-round test accuracy must agree;
+8. fig4       runs the port's Fig. 4 benchmark on the card; bkd_cached must
+              equal bkd;
+9. kernels    prints one JSON line per the port's kernel table.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -25,11 +41,13 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -39,9 +57,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.benchmarks import fig4_main  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.resnet32_cifar import RESNET32  # noqa: E402
+from repro_torch.core.fl import FederatedKD, FLConfig, resnet_adapter  # noqa: E402
+from repro_torch.data import (Dataset, dirichlet_partition,  # noqa: E402
+                              make_cifar_like)
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.interop import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import kd_loss as kd_mod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pd_mod  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
 from repro_torch.launch.serve import summarize  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -114,10 +142,18 @@ def phase_device():
     return name
 
 
+KERNEL_SOURCES = ("paged_decode", "kd_loss")
+
+
 def phase_build():
+    """One nvcc per source, all started together; each prints its
+    registers and spills (``-Xptxas -v``)."""
     t0 = time.perf_counter()
-    lib = pd_mod.build(verbose=True)
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.2f}s")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = list(pool.map(lambda n: kbuild.build(n, verbose=True),
+                             KERNEL_SOURCES))
+    print(f"[build] {', '.join(lib.name for lib in libs)} in "
+          f"{time.perf_counter() - t0:.2f}s")
 
 
 def _serving_case(dtype, seed=0, copies=1):
@@ -312,6 +348,276 @@ def phase_parity():
     check(stats["cpu"] == stats["cuda"], "prefix stats differ card vs CPU")
 
 
+# -- the fused KD loss kernels ---------------------------------------------
+
+KD_MAIN = dict(rows=128, v=100)           # FL main path: batch x classes
+KD_LLM = dict(rows=512, v=49155, pad=125)  # Granite's vocabulary, padded
+TAU = 2.0
+
+
+def _kd_inputs(rows, v, dtype, buffer, pad=0, seed=0, copies=1):
+    """Sets of (labels, s, t, b, g) on the card from a seed: logits of unit
+    scale x 3, the last ``pad`` columns at -1e30, labels avoiding them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sets = []
+    for _ in range(copies):
+        logits = []
+        for _ in range(3 if buffer else 2):
+            a = 3 * torch.randn((rows, v), generator=gen, device="cuda")
+            if pad:
+                a[:, v - pad:] = -1e30
+            logits.append(a.to(dtype))
+        y = torch.randint(0, v - pad, (rows,), generator=gen, device="cuda")
+        g = torch.rand(rows, generator=gen, device="cuda") + 0.5
+        s, t = logits[:2]
+        sets.append((y, s, t, logits[2] if buffer else None, g))
+    return sets
+
+
+def _kd_bounds(rows, v, itemsize, buffer):
+    """(fwd, bwd) least times in ms: every logit read once, stats / ds
+    written once; f32 operations per logit at the CUDA-core peak (forward:
+    four online-logsumexp streams, 16 operations with a buffer and 11
+    without; backward: 14 and 11)."""
+    n_in = 3 if buffer else 2
+    out = []
+    for bytes_, ops_per in (
+            (rows * v * itemsize * n_in + rows * (8 + 4 * kd_mod.N_STATS),
+             16 if buffer else 11),
+            (rows * v * itemsize * (n_in + 1)
+             + rows * (8 + 4 + 4 * kd_mod.N_STATS), 14 if buffer else 11)):
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = rows * v * ops_per / F32_FLOPS * 1e3
+        out.append((max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _check_kd(rows, v, dtype, buffer, pad, seed):
+    """Kernels against plain versions; ops.kd_loss's loss and autograd
+    gradient against the plain path.  Returns the max abs errors of
+    (stats, ds) and the relative ones."""
+    y, s, t, b, g = _kd_inputs(rows, v, dtype, buffer, pad, seed)[0]
+    stats = kd_mod.kd_stats_fwd(y, s, t, b, TAU)
+    ds = kd_mod.kd_grad_bwd(y, g, stats, s, t, b, TAU, 1.0 / rows)
+    torch.cuda.synchronize()
+    want = kref.kd_stats_ref(y, s, t, b, TAU)
+    want_ds = kref.kd_grad_ref(y, g, want, s, t, b, TAU, 1.0 / rows)
+    s1 = s.clone().requires_grad_()
+    loss = ops.kd_loss(y, s1, t, b, TAU)
+    loss.backward()
+    s2 = s.clone().requires_grad_()
+    want_loss = kref.kd_loss_mean_ref(y, s2, t, b, TAU)
+    want_loss.backward()
+    errs = {"stats": _rel_err(stats, want), "ds": _rel_err(ds, want_ds),
+            "loss": abs(loss.item() - want_loss.item()) / abs(want_loss.item()),
+            "grad": _rel_err(s1.grad, s2.grad)}
+    tol = TOL[dtype]
+    name = (f"rows={rows} V={v} {str(dtype).split('.')[-1]} "
+            f"buffer={buffer} pad={pad}")
+    for what, e in errs.items():
+        check(math.isfinite(e) and e <= tol,
+              f"kd {what} {name}: relative err {e} > {tol}")
+    check(stats.shape == (rows, kd_mod.N_STATS) and ds.dtype == dtype,
+          f"kd outputs {tuple(stats.shape)} {ds.dtype}")
+    print(f"[kd] {name}: relative err stats {errs['stats']:.3g}, ds "
+          f"{errs['ds']:.3g}, loss {errs['loss']:.3g}, autograd grad "
+          f"{errs['grad']:.3g} (limit {tol})")
+    return ((stats - want).abs().max().item(),
+            (ds.float() - want_ds.float()).abs().max().item())
+
+
+def _time_kd(rows, v, dtype, buffer, pad, copies):
+    """Device ms of (fwd kernel, bwd kernel, fwd plain, bwd plain), each
+    replayed from a CUDA graph over ``copies`` input sets."""
+    sets = _kd_inputs(rows, v, dtype, buffer, pad, seed=9, copies=copies)
+    fwd = [(y, s, t, b) for y, s, t, b, _ in sets]
+    stats = [kd_mod.kd_stats_fwd(*a, TAU) for a in fwd]
+    bwd = [(y, g, st, s, t, b) for (y, s, t, b, g), st in zip(sets, stats)]
+    return (time_ms(lambda *a: kd_mod.kd_stats_fwd(*a, TAU), fwd),
+            time_ms(lambda *a: kd_mod.kd_grad_bwd(*a, TAU, 1.0 / rows), bwd),
+            time_ms(lambda *a: kref.kd_stats_ref(*a, TAU), fwd),
+            time_ms(lambda *a: kref.kd_grad_ref(*a, TAU, 1.0 / rows), bwd))
+
+
+def phase_kd_kernels():
+    """Returns the kernel-table entries of kd_stats_fwd and kd_grad_bwd at
+    the main path's shape (launches filled in by the fl phase)."""
+    abs_errs = []
+    for buffer in (False, True):
+        abs_errs.append(_check_kd(**KD_MAIN, dtype=torch.float32,
+                                  buffer=buffer, pad=0, seed=1))
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_kd(**KD_LLM, dtype=dtype, buffer=True, seed=2)
+    entries = []
+    shapes = [("main path", KD_MAIN, torch.float32, 0, 8),
+              ("LLM", KD_LLM, torch.float32, KD_LLM["pad"], 2),
+              ("LLM", KD_LLM, torch.bfloat16, KD_LLM["pad"], 2)]
+    for label, shape, dtype, pad, copies in shapes:
+        rows, v = shape["rows"], shape["v"]
+        buffers = (False, True) if label == "main path" else (True,)
+        for buffer in buffers:
+            ms = _time_kd(rows, v, dtype, buffer, pad, copies)
+            itemsize = torch.finfo(dtype).bits // 8
+            bounds = _kd_bounds(rows, v, itemsize, buffer)
+            for k, name in enumerate(("kd_stats_fwd", "kd_grad_bwd")):
+                print(f"[kd] {name} {label} rows={rows} V={v} "
+                      f"{str(dtype).split('.')[-1]} buffer={buffer}: kernel "
+                      f"{ms[k]:.5f} ms, plain {ms[k + 2]:.5f} ms, bound "
+                      f"{bounds[k][0]:.5f} ms ({bounds[k][1]}), "
+                      f"{bounds[k][0] / ms[k]:.1%} of the bound; library: "
+                      f"none (no single PyTorch call computes this fused "
+                      f"function)")
+            if label == "main path" and buffer:
+                for k, name in enumerate(("kd_stats_fwd", "kd_grad_bwd")):
+                    entries.append({
+                        "name": name, "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
+                        "replaces": ("src/repro/kernels/kd_loss.py:244"
+                                     if k == 0 else
+                                     "src/repro/kernels/kd_loss.py:271"),
+                        "launches": None,
+                        "max_abs_err": max(e[k] for e in abs_errs),
+                        "ms": ms[k], "plain_ms": ms[k + 2],
+                        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                        "library_ms": None})
+    return entries
+
+
+# -- Algorithm 1 on the card ------------------------------------------------
+
+
+def _cifar_silos():
+    """CIFAR-shaped data (32x32x3, 100 classes): 1,000 test images and
+    1 core + 3 edge Dirichlet(1) silos of ~2,500 (the paper's 50,000 / 20)."""
+    x, y = make_cifar_like(num_classes=100, n=11000, seed=0)
+    xs, ys = x[1000:], y[1000:]
+    parts = dirichlet_partition(ys, 4, alpha=1.0, seed=1)
+    return (Dataset(xs[parts[0]], ys[parts[0]]),
+            [Dataset(xs[p], ys[p]) for p in parts[1:]],
+            Dataset(x[:1000], y[:1000]))
+
+
+def _timed(obj, name, times, key):
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        times[key] += time.perf_counter() - t0
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def _fl_run(silos, method, rounds, r):
+    core, edges, test = silos
+    cfg = FLConfig(num_edges=3, rounds=rounds, aggregation_r=r, method=method,
+                   core_epochs=2, edge_epochs=2, kd_epochs=2, batch_size=128,
+                   lr=0.1, kd_lr=0.02, tau=2.0, loss_backend="auto")
+    fl = FederatedKD(resnet_adapter(RESNET32), cfg, core, edges, test,
+                     device="cuda")
+    times = {"phase0": 0.0, "phase1": 0.0}
+    _timed(fl, "pretrain_core", times, "phase0")
+    _timed(fl, "train_round_edges", times, "phase1")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kd_mod.kd_stats_fwd.launches = kd_mod.kd_grad_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, hist = fl.run(0, log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (kd_mod.kd_stats_fwd.launches, kd_mod.kd_grad_bwd.launches)
+    steps = rounds * cfg.kd_epochs * max(len(core) // min(cfg.batch_size,
+                                                        len(core)), 1)
+    phase2 = wall - times["phase0"] - times["phase1"]
+    tag = f"{method} R={r}"
+    for h in hist:
+        print(f"[fl] {tag} round {h.round}: edges {h.edges} test_acc "
+              f"{h.test_acc:.4f} acc_cur_edge {h.acc_cur_edge:.4f} "
+              f"forget_score {h.get('forget_score')} lost {h.get('lost')}")
+    print(f"[fl] {tag}: {rounds} rounds in {wall:.2f}s: phase 0 "
+          f"{times['phase0']:.2f}s, phase 1 {times['phase1']:.2f}s, phase 2 "
+          f"(with the rounds' metrics passes) {phase2:.2f}s = "
+          f"{steps / phase2:.2f} Phase-2 steps/s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; kd_stats_fwd/kd_grad_bwd "
+          f"launches {launches[0]}/{launches[1]} for {steps} Phase-2 steps")
+    check(launches == (steps, steps) and steps > 0,
+          f"{tag}: kernel launches {launches} != Phase-2 steps {steps}")
+    for h in hist:
+        vals = [v for v in h.as_dict().values() if isinstance(v, float)]
+        check(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {h}")
+    check(len(hist) == rounds, f"{tag}: {len(hist)} of {rounds} rounds")
+    return launches
+
+
+def phase_fl():
+    """ResNet-32 at full width, f32, PyTorch's default convolution math
+    (cuDNN TF32 on).  Returns the kernels' launches over the phase."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    silos = _cifar_silos()
+    core, edges, test = silos
+    print(f"[fl] ResNet-{RESNET32.depth} width {RESNET32.width}, "
+          f"{RESNET32.num_classes} classes; core {len(core)}, edges "
+          f"{[len(e) for e in edges]}, test {len(test)}; cuDNN TF32 "
+          f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    total = [0, 0]
+    for method, rounds, r in (("kd", 3, 1), ("bkd", 3, 1), ("bkd", 1, 2)):
+        launches = _fl_run(silos, method, rounds, r)
+        total = [a + b for a, b in zip(total, launches)]
+    return total
+
+
+def phase_fl_parity():
+    """The quickstart's MLP federation (2 rounds, f32, TF32 off) on the card
+    (kernels) and on the CPU (plain versions) from one initial state."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    adapter, core, edges, test = quickstart.setup()
+    init = params_to_numpy(adapter.init(torch.Generator().manual_seed(0),
+                                        "cpu"))
+    adapter = dataclasses.replace(
+        adapter, init=lambda gen, device: params_from_numpy(init, device))
+    for method in ("kd", "bkd"):
+        cfg = quickstart.config(method, rounds=2)
+        first, accs = {}, {}
+        for device in ("cpu", "cuda"):
+            fl = FederatedKD(adapter, cfg, core, edges, test, device=device)
+            state = fl.pretrain_core(0)
+            teachers = fl.train_round_edges([state], [0], seed=cfg.seed)
+            stepper = fl.distill_stepper(state, teachers, 0, edge_ids=[0])
+            stepper.step(max_steps=1)
+            first[device] = stepper.losses[0].item()
+            _, hist = FederatedKD(adapter, cfg, core, edges, test,
+                                  device=device).run(0, log=None)
+            accs[device] = [h["test_acc"] for h in hist]
+        rel = abs(first["cuda"] - first["cpu"]) / abs(first["cpu"])
+        gap = max(abs(a - b) for a, b in zip(accs["cuda"], accs["cpu"]))
+        print(f"[fl parity] {method}: first Phase-2 loss card "
+              f"{first['cuda']:.7f} cpu {first['cpu']:.7f} (relative "
+              f"{rel:.3g}, limit 1e-5); test_acc card {accs['cuda']} cpu "
+              f"{accs['cpu']} (max gap {gap:.4f}, limit 0.02)")
+        check(rel <= 1e-5, f"{method}: first Phase-2 loss differs by {rel}")
+        check(gap <= 0.02, f"{method}: test_acc differs by {gap}")
+
+
+def phase_fig4():
+    t0 = time.perf_counter()
+    _, checks = fig4_main.main(device="cuda")
+    print(f"[fig4] {time.perf_counter() - t0:.1f}s; checks {checks}")
+    check(checks["cached_equals_bkd"], "fig4: bkd_cached differs from bkd")
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -332,7 +638,13 @@ def main():
     entry = phase_kernel()
     entry["launches"] = phase_serve()
     phase_parity()
-    print(json.dumps({"kernels": [entry]}))
+    kd_entries = phase_kd_kernels()
+    launches = phase_fl()
+    for e, n in zip(kd_entries, launches):
+        e["launches"] = n
+    phase_fl_parity()
+    phase_fig4()
+    print(json.dumps({"kernels": [entry] + kd_entries}))
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,15 @@
 """PyTorch/CUDA port of the ``repro`` package, slice by slice.
 
-Serving comes first: the block-paged continuous-batching engine
+Slice 1 is serving: the block-paged continuous-batching engine
 (``repro_torch.serve.engine.ServeEngine(paged=True)``) over the
 attention-only Transformer, with decode attention on a hand-written Hopper
-kernel (``repro_torch.kernels.paged_decode``).  Module names follow the JAX
-package so each counterpart is easy to find; parameters keep its nested-dict
-layout (``repro_torch.interop`` moves them across).
+kernel (``repro_torch.kernels.paged_decode``).  Slice 2 is the paper's
+Algorithm 1 (``repro_torch.core.fl.FederatedKD``) with the MLP and
+ResNet-32 models, whose Phase-2 loss runs on the hand-written kernels
+``repro_torch.kernels.kd_loss.kd_stats_fwd``/``kd_grad_bwd``.  Module names
+follow the JAX package so each counterpart is easy to find; parameters and
+states keep its nested-dict layout (``repro_torch.interop`` moves them
+across).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; a
 CUDA entry point with no card raises instead of falling back to the CPU.

@@ -1,0 +1,1 @@
+"""Paper-figure benchmarks of the port (``python -m repro_torch.benchmarks.<name>``)."""

@@ -1,8 +1,10 @@
 """Parameters across the two packages.
 
 The JAX package keeps parameters as nested dicts of arrays; the port keeps
-the same keys, shapes and layouts as tensors.  Callers hand over numpy
-arrays (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+the same keys, shapes and layouts as tensors: Transformer parameters, MLP
+states and ResNet ``{"params", "bn"}`` states (HWIO convolution weights),
+optimizer slots.  Callers hand over numpy arrays
+(``jax.tree.map(np.asarray, state)``), so this module needs no JAX.
 """
 
 from __future__ import annotations

@@ -1,0 +1,142 @@
+"""Hand-written Hopper kernels for the fused buffered-KD loss.
+
+``csrc/kd_loss.cu`` holds the counterparts of the TPU kernels
+``repro/kernels/kd_loss.py::kd_stats_fwd`` (one pass of online logsumexp
+giving 11 stats per row) and ``::kd_grad_bwd`` (the student gradient from
+those stats).  It is built at first use by ``repro_torch.kernels.build``
+and bound with ``ctypes``; nothing is built or loaded when this module is
+imported.  ``assemble_loss`` turns the stats into the per-row loss, as in
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import build as _build
+
+N_STATS = 11  # [lse_s, s_y, lse_st, lse_tt, E_t[t/tau], E_t[s/tau], lse_bt, E_b[b/tau], E_b[s/tau], 0, 0]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_COLS_PER_BLOCK = 1024  # the backward's column chunk (256 threads x 4)
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel library if this source has not been built yet;
+    returns its path (see ``repro_torch.kernels.build.build``)."""
+    return _build.build("kd_loss", verbose)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.load("kd_loss")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.kd_stats_fwd.argtypes = [ptr] * 5 + [i32, i32, f32, i32, ptr]
+    lib.kd_stats_fwd.restype = i32
+    lib.kd_grad_bwd.argtypes = [ptr] * 7 + [i32, i32, f32, f32, f32, i32, ptr]
+    lib.kd_grad_bwd.restype = i32
+    return lib
+
+
+def _check(labels, s, t, b, name):
+    if s.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {s.device}")
+    named = [("labels", labels), ("teacher", t)] + (
+        [("buffer", b)] if b is not None else [])
+    for what, x in named:
+        if x.device != s.device:
+            raise ValueError(f"{what} on {x.device}, student on {s.device}")
+    if s.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16 logits, got "
+                        f"{s.dtype}")
+    for what, x in named[1:]:
+        if x.dtype != s.dtype:
+            raise TypeError(f"{what} logits are {x.dtype}, student {s.dtype}: "
+                            f"the kernel reads one dtype")
+    if labels.dtype != torch.int64:
+        raise TypeError(f"labels must be int64, got {labels.dtype}")
+    if s.dim() != 2 or s.shape[1] < 1:
+        raise ValueError(f"logits must be (rows, V) with V >= 1, got "
+                         f"{tuple(s.shape)}")
+    for what, x in named[1:]:
+        if x.shape != s.shape:
+            raise ValueError(f"{what} logits {tuple(x.shape)} != student "
+                             f"{tuple(s.shape)}")
+    if labels.shape != (s.shape[0],):
+        raise ValueError(f"labels {tuple(labels.shape)} do not match "
+                         f"{s.shape[0]} rows")
+    rows, v = s.shape
+    if rows >= 2 ** 31 or -(-v // _COLS_PER_BLOCK) > 65535:
+        raise ValueError(f"({rows}, {v}) logits exceed the kernel's grid")
+    for what, x in [("labels", labels), ("student", s)] + named[1:]:
+        if not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+
+def kd_stats_fwd(labels, s, t, b, tau):
+    """Per-row stats (rows, 11) f32 of student ``s``, teacher ``t`` and
+    buffer ``b`` logits (rows, V), f32 or bf16 of one dtype, ``b`` None for
+    plain KD; labels (rows,) int64, each in [0, V) (``ops.kd_loss`` checks
+    the range on the device).  Launches on the current stream without
+    synchronising; every launch adds one to ``kd_stats_fwd.launches``."""
+    _check(labels, s, t, b, "kd_stats_fwd")
+    rows, v = s.shape
+    stats = torch.empty((rows, N_STATS), dtype=torch.float32, device=s.device)
+    err = _library().kd_stats_fwd(
+        labels.data_ptr(), s.data_ptr(), t.data_ptr(),
+        b.data_ptr() if b is not None else None, stats.data_ptr(), rows, v,
+        1.0 / float(tau), _DTYPES[s.dtype],
+        torch.cuda.current_stream(s.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"kd_stats_fwd launch failed: CUDA error {err}")
+    kd_stats_fwd.launches += 1
+    return stats
+
+
+def kd_grad_bwd(labels, g, stats, s, t, b, tau, mean_scale):
+    """Student gradient (rows, V) in ``s``'s dtype from the forward's
+    ``stats`` and the per-row cotangent ``g`` (rows,) f32, scaled by
+    ``mean_scale``.  Every launch adds one to ``kd_grad_bwd.launches``."""
+    _check(labels, s, t, b, "kd_grad_bwd")
+    rows, v = s.shape
+    for what, x, shape in (("g", g, (rows,)), ("stats", stats, (rows, N_STATS))):
+        if x.device != s.device or x.dtype != torch.float32 \
+                or x.shape != shape or not x.is_contiguous():
+            raise ValueError(f"{what} must be a contiguous float32 {shape} "
+                             f"tensor on {s.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    ds = torch.empty_like(s)
+    err = _library().kd_grad_bwd(
+        labels.data_ptr(), g.data_ptr(), stats.data_ptr(), s.data_ptr(),
+        t.data_ptr(), b.data_ptr() if b is not None else None, ds.data_ptr(),
+        rows, v, float(tau), 1.0 / float(tau), float(mean_scale),
+        _DTYPES[s.dtype], torch.cuda.current_stream(s.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"kd_grad_bwd launch failed: CUDA error {err}")
+    kd_grad_bwd.launches += 1
+    return ds
+
+
+kd_stats_fwd.launches = 0
+kd_grad_bwd.launches = 0
+
+
+def assemble_loss(stats, tau, with_buffer):
+    """Per-row loss from the stats.
+
+    CE = lse_s - s_y
+    tau^2 KL(t||s) = tau^2 * (E_t[t/tau] - lse_tt - E_t[s/tau] + lse_st)
+    """
+    lse_s, sy = stats[:, 0], stats[:, 1]
+    lse_st, lse_tt = stats[:, 2], stats[:, 3]
+    et_tt, et_ts = stats[:, 4], stats[:, 5]
+    ce = lse_s - sy
+    kl_t = (tau ** 2) * (et_tt - lse_tt - et_ts + lse_st)
+    loss = ce + kl_t
+    if with_buffer:
+        lse_bt, eb_bb, eb_bs = stats[:, 6], stats[:, 7], stats[:, 8]
+        loss = loss + (tau ** 2) * (eb_bb - lse_bt - eb_bs + lse_st)
+    return loss

@@ -3,6 +3,9 @@ PyTorch version, a CUDA tensor the hand-written kernel."""
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.paged_decode import paged_decode
 
@@ -14,3 +17,60 @@ def paged_decode_attn(q, k_pool, v_pool, pt, pos, *, window=None):
     if q.device.type == "cpu":
         return _ref.paged_decode_ref(q, k_pool, v_pool, pt, pos, window=window)
     return paged_decode(q, k_pool, v_pool, pt, pos, window=window)
+
+
+def kd_stats(labels, s, t, b, tau):
+    """The fused KD loss's forward stats (rows, 11): ``kd_stats_fwd`` on a
+    CUDA tensor, ``kd_stats_ref`` on a CPU one."""
+    if s.device.type == "cpu":
+        return _ref.kd_stats_ref(labels, s, t, b, tau)
+    return _kd.kd_stats_fwd(labels, s, t, b, tau)
+
+
+def kd_grad(labels, g, stats, s, t, b, tau, mean_scale):
+    """The fused KD loss's student gradient: ``kd_grad_bwd`` on a CUDA
+    tensor, ``kd_grad_ref`` on a CPU one."""
+    if s.device.type == "cpu":
+        return _ref.kd_grad_ref(labels, g, stats, s, t, b, tau, mean_scale)
+    return _kd.kd_grad_bwd(labels, g, stats, s, t, b, tau, mean_scale)
+
+
+class _KDLoss(torch.autograd.Function):
+    """mean(CE + tau^2 KL(t||s) [+ tau^2 KL(b||s)]) with the forward stats
+    and the student gradient from the kernel pair.  Teacher and buffer are
+    frozen: they get no gradient."""
+
+    @staticmethod
+    def forward(ctx, labels, s, t, b, tau):
+        stats = kd_stats(labels, s, t, b, tau)
+        ctx.save_for_backward(labels, stats, s, t, b)
+        ctx.tau = tau
+        return torch.mean(_kd.assemble_loss(stats, tau, b is not None))
+
+    @staticmethod
+    def backward(ctx, g):
+        labels, stats, s, t, b = ctx.saved_tensors
+        rows = s.shape[0]
+        gv = g.float().expand(rows).contiguous()
+        ds = kd_grad(labels, gv, stats, s, t, b, ctx.tau, 1.0 / rows)
+        return None, ds, None, None, None
+
+
+def kd_loss(labels, student_logits, teacher_logits, buffer_logits=None,
+            tau=2.0):
+    """Mean buffered-KD loss over rows through the kernel pair (forward
+    ``kd_stats_fwd``, backward ``kd_grad_bwd``); differentiable w.r.t. the
+    student logits only.  labels (R,) integers in [0, V); logits (R, V) of
+    one dtype, any V.  On a CUDA tensor the label range is asserted on the
+    device (no host sync): a label outside [0, V) raises at the next
+    synchronise."""
+    s = student_logits.contiguous()
+    t = teacher_logits.detach().contiguous()
+    b = (buffer_logits.detach().contiguous()
+         if buffer_logits is not None else None)
+    labels = labels.long().contiguous()
+    if s.device.type == "cuda":
+        v = s.shape[-1]
+        torch._assert_async(((labels >= 0) & (labels < v)).all(),
+                            f"kd_loss: a label is outside [0, {v})")
+    return _KDLoss.apply(labels, s, t, b, float(tau))

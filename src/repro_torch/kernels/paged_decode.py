@@ -1,77 +1,34 @@
 """Hand-written Hopper kernel for block-paged decode attention.
 
 ``csrc/paged_decode.cu`` (the counterpart of the TPU kernel
-``repro/kernels/swa_decode.py::paged_decode``) is compiled at first use by
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface under
-``build/kernels/`` at the repository root, and bound with ``ctypes``.  The
-library's name carries a hash of the source and flags, so an edited source
-is rebuilt.  Nothing is built or loaded when this module is imported.
+``repro/kernels/swa_decode.py::paged_decode``) is built at first use by
+``repro_torch.kernels.build`` and bound with ``ctypes``.  Nothing is built
+or loaded when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_decode.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels import build as _build
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the paged_decode kernel is built from source")
 
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library if this source has not been built yet;
-    returns its path.  A failed build raises with nvcc's output.  With
-    ``verbose`` the compiler's resource report (``-Xptxas -v``) is printed."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"paged_decode_{tag}.so"
-    if lib.exists() and not verbose:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
-    return lib
+    returns its path (see ``repro_torch.kernels.build.build``)."""
+    return _build.build("paged_decode", verbose)
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build()))
-    fn = lib.paged_decode
+    fn = _build.load("paged_decode").paged_decode
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int

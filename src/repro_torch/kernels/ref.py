@@ -28,3 +28,63 @@ def paged_decode_ref(q, k_pool, v_pool, pt, pos, window=None):
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bngw,bwnd->bngd", p, vc.float()).to(q.dtype)
+
+
+def kd_loss_ref(labels, s, t, b, tau):
+    """Per-row buffered-KD loss: CE + tau^2 KL(t||s) [+ tau^2 KL(b||s)].
+    s, t, b: (rows, V) logits (b may be None); labels (rows,) int."""
+    s = s.float()
+    lse_s = torch.logsumexp(s, dim=-1)
+    ce = lse_s - s.gather(-1, labels.long()[:, None])[:, 0]
+    ls = torch.log_softmax(s / tau, dim=-1)
+
+    def kl(teacher):
+        lt = torch.log_softmax(teacher.float() / tau, dim=-1)
+        return (tau ** 2) * torch.sum(torch.exp(lt) * (lt - ls), dim=-1)
+
+    loss = ce + kl(t)
+    if b is not None:
+        loss = loss + kl(b)
+    return loss
+
+
+def kd_loss_mean_ref(labels, s, t, b, tau):
+    return torch.mean(kd_loss_ref(labels, s, t, b, tau))
+
+
+def kd_stats_ref(labels, s, t, b, tau):
+    """The (rows, 11) f32 stats of ``kd_stats_fwd`` in plain PyTorch:
+    [lse_s, s_y, lse_st, lse_tt, E_t[t/tau], E_t[s/tau], lse_bt, E_b[b/tau],
+    E_b[s/tau], 0, 0], with E_t and E_b weighted by softmax(t/tau) and
+    softmax(b/tau); the buffer columns are 0 when ``b`` is None."""
+    s = s.float()
+    st = s / tau
+    zero = torch.zeros_like(s[:, 0])
+
+    def soft(x):
+        xt = x.float() / tau
+        p = torch.softmax(xt, dim=-1)
+        return (torch.logsumexp(xt, dim=-1), torch.sum(p * xt, dim=-1),
+                torch.sum(p * st, dim=-1))
+
+    lse_tt, et_tt, et_ts = soft(t)
+    lse_bt, eb_bb, eb_bs = soft(b) if b is not None else (zero, zero, zero)
+    sy = s.gather(-1, labels.long()[:, None])[:, 0]
+    return torch.stack([torch.logsumexp(s, dim=-1), sy,
+                        torch.logsumexp(st, dim=-1), lse_tt, et_tt, et_ts,
+                        lse_bt, eb_bb, eb_bs, zero, zero], dim=-1)
+
+
+def kd_grad_ref(labels, g, stats, s, t, b, tau, mean_scale):
+    """``kd_grad_bwd`` in plain PyTorch: g*mean_scale*[softmax(s) - onehot(y)
+    + tau*(softmax(s/tau) - softmax(t/tau)) (+ tau*(softmax(s/tau) -
+    softmax(b/tau)))], the softmaxes normalised by the stats' lse columns;
+    returned in ``s``'s dtype."""
+    sf = s.float()
+    p_st = torch.exp(sf / tau - stats[:, 2:3])
+    ds = torch.exp(sf - stats[:, 0:1])
+    ds = ds - torch.nn.functional.one_hot(labels.long(), s.shape[-1]).float()
+    ds = ds + tau * (p_st - torch.exp(t.float() / tau - stats[:, 3:4]))
+    if b is not None:
+        ds = ds + tau * (p_st - torch.exp(b.float() / tau - stats[:, 6:7]))
+    return ((g.float() * mean_scale)[:, None] * ds).to(s.dtype)

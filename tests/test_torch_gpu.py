@@ -2,11 +2,18 @@
 tests/test_torch_*.py`` on a machine with a CUDA card and ``nvcc``.
 
 Every test here needs the card and skips without one.  The file imports no
-JAX (the GPU machine has none): the hand-written ``paged_decode`` kernel is
-held against the port's plain PyTorch version (f32 within 1e-5, bf16
-within 1e-2), and the paged engine on the card against the same engine on
-the CPU (greedy tokens equal, f32 with TF32 off).
+JAX (the GPU machine has none): the hand-written ``paged_decode``,
+``kd_stats_fwd`` and ``kd_grad_bwd`` kernels are held against the port's
+plain PyTorch versions (f32 within 1e-5, bf16 within 1e-2), the paged
+engine on the card against the same engine on the CPU (greedy tokens
+equal, f32 with TF32 off), and one federated round on the card against the
+same round on the CPU.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.kernels import kd_loss as kd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_decode  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -109,3 +117,167 @@ def test_engine_on_card_matches_cpu_and_runs_the_kernel(cuda):
     assert outs["cpu"] == outs["cuda"]
     assert launches["cpu"] == 0
     assert launches["cuda"] == cfg.num_layers * engine.decode_ticks > 0
+
+
+# -- the fused KD loss kernels ----------------------------------------------
+
+
+def _kd_case(device, rows, v, dtype, buffer, seed=0):
+    """Logits of unit scale x 3 with the last ``min(125, v // 4)`` columns
+    at -1e30 (the vocabulary padding of LLM logits); labels avoid them."""
+    rng = np.random.default_rng(seed)
+    pad = min(125, v // 4)
+    arrays = [3 * rng.standard_normal((rows, v)) for _ in range(3)]
+    for a in arrays:
+        if pad:
+            a[:, v - pad:] = -1e30
+    s, t, b = (torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+               for a in arrays)
+    labels = torch.from_numpy(
+        rng.integers(0, v - pad, size=rows).astype(np.int64)).to(device)
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, rows).astype(np.float32)).to(
+        device)
+    return labels, s, t, (b if buffer else None), g
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("buffer", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [100, 128, 129, 49155])
+@pytest.mark.parametrize("rows", [1, 7, 128, 513])
+def test_kd_kernels_match_ref(cuda, rows, v, dtype, buffer):
+    labels, s, t, b, g = _kd_case(cuda, rows, v, dtype, buffer)
+    tau = 2.0
+    before = (kd.kd_stats_fwd.launches, kd.kd_grad_bwd.launches)
+    stats = kd.kd_stats_fwd(labels, s, t, b, tau)
+    ds = kd.kd_grad_bwd(labels, g, stats, s, t, b, tau, 1.0 / rows)
+    torch.cuda.synchronize()
+    assert (kd.kd_stats_fwd.launches, kd.kd_grad_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = ref.kd_stats_ref(labels, s, t, b, tau)
+    assert stats.shape == (rows, kd.N_STATS) and stats.dtype == torch.float32
+    assert torch.isfinite(stats).all()
+    assert _rel(stats, want) <= TOL[dtype]
+    want_ds = ref.kd_grad_ref(labels, g, want, s, t, b, tau, 1.0 / rows)
+    assert ds.dtype == dtype and ds.shape == s.shape
+    assert torch.isfinite(ds.float()).all()
+    assert _rel(ds, want_ds) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("buffer", [False, True])
+def test_kd_loss_autograd_matches_plain(cuda, buffer):
+    labels, s, t, b, _ = _kd_case(cuda, 128, 100, torch.float32, buffer, 1)
+    s1 = s.clone().requires_grad_()
+    loss = ops.kd_loss(labels, s1, t, b, 2.0)
+    loss.backward()
+    s2 = s.clone().requires_grad_()
+    want = ref.kd_loss_mean_ref(labels, s2, t, b, 2.0)
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    assert _rel(s1.grad, s2.grad) <= 1e-5
+
+
+def test_kd_loss_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "kd_stats_ref", refuse)
+    monkeypatch.setattr(ref, "kd_grad_ref", refuse)
+    labels, s, t, b, _ = _kd_case(cuda, 8, 129, torch.float32, True, 2)
+    before = (kd.kd_stats_fwd.launches, kd.kd_grad_bwd.launches)
+    s = s.requires_grad_()
+    ops.kd_loss(labels, s, t, b, 2.0).backward()
+    torch.cuda.synchronize()
+    assert (kd.kd_stats_fwd.launches, kd.kd_grad_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(s.grad).all()
+
+
+def test_kd_kernel_wrappers_check_inputs(cuda):
+    labels, s, t, b, g = _kd_case(cuda, 8, 100, torch.float32, True, 3)
+    stats = kd.kd_stats_fwd(labels, s, t, b, 2.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kd.kd_stats_fwd(labels.cpu(), s.cpu(), t.cpu(), b.cpu(), 2.0)
+    with pytest.raises(TypeError):
+        kd.kd_stats_fwd(labels, s.half(), t.half(), b.half(), 2.0)
+    with pytest.raises(TypeError, match="one dtype"):
+        kd.kd_stats_fwd(labels, s, t.bfloat16(), b, 2.0)
+    with pytest.raises(TypeError, match="int64"):
+        kd.kd_stats_fwd(labels.int(), s, t, b, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.kd_stats_fwd(labels, s.t().contiguous().t(), t, b, 2.0)
+    with pytest.raises(ValueError, match="rows"):
+        kd.kd_stats_fwd(labels[:4], s, t, b, 2.0)
+    with pytest.raises(ValueError):
+        kd.kd_stats_fwd(labels, s, t[:, :50].contiguous(), b, 2.0)
+    with pytest.raises(ValueError, match="float32"):
+        kd.kd_grad_bwd(labels, g.double(), stats, s, t, b, 2.0, 0.125)
+    with pytest.raises(ValueError, match="stats"):
+        kd.kd_grad_bwd(labels, g, stats[:, :9].contiguous(), s, t, b, 2.0,
+                       0.125)
+
+
+def test_kd_loss_rejects_out_of_range_labels(cuda):
+    """The device-side label check poisons the CUDA context when it fires,
+    so it runs in a child process."""
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels import ops\n"
+        "s = torch.zeros(4, 100, device='cuda')\n"
+        "y = torch.tensor([0, 1, 100, 3], device='cuda')\n"
+        "ops.kd_loss(y, s, s, None, 2.0)\n"
+        "torch.cuda.synchronize()\n")
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "assert" in proc.stderr.lower()
+
+
+# -- Algorithm 1 on the card -------------------------------------------------
+
+
+@pytest.mark.parametrize("method", ["kd", "bkd"])
+def test_federated_round_on_card_matches_cpu_and_runs_the_kernels(
+        cuda, method):
+    """One quickstart round of an MLP, f32 with TF32 off, from one carried
+    initial state: the first Phase-2 loss agrees within 1e-5 relative and
+    the test accuracy within 0.02 (as the CPU tests hold the port against
+    the JAX package); every Phase-2 step ran both kernels."""
+    import dataclasses
+
+    from repro_torch.core.fl import FederatedKD
+    from repro_torch.examples import quickstart
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+
+    torch.backends.cudnn.allow_tf32 = False
+    adapter, core, edges, test = quickstart.setup()
+    init = params_to_numpy(adapter.init(torch.Generator().manual_seed(0),
+                                        "cpu"))
+    adapter = dataclasses.replace(
+        adapter, init=lambda gen, device: params_from_numpy(init, device))
+    cfg = quickstart.config(method, rounds=1)
+    first, acc, launches = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        fl = FederatedKD(adapter, cfg, core, edges, test, device=device)
+        state = fl.pretrain_core(0)
+        teachers = fl.train_round_edges([state], [0], seed=cfg.seed)
+        stepper = fl.distill_stepper(state, teachers, 0, edge_ids=[0])
+        stepper.step(max_steps=1)
+        first[device] = stepper.losses[0].item()
+        before = (kd.kd_stats_fwd.launches, kd.kd_grad_bwd.launches)
+        _, hist = FederatedKD(adapter, cfg, core, edges, test,
+                              device=device).run(0, log=None)
+        launches[device] = (kd.kd_stats_fwd.launches - before[0],
+                            kd.kd_grad_bwd.launches - before[1])
+        acc[device] = hist[0]["test_acc"]
+    assert abs(first["cuda"] - first["cpu"]) <= 1e-5 * abs(first["cpu"])
+    assert abs(acc["cuda"] - acc["cpu"]) <= 0.02
+    steps = cfg.kd_epochs * (len(core) // cfg.batch_size)
+    assert launches == {"cpu": (0, 0), "cuda": (steps, steps)}
