@@ -33,7 +33,23 @@ together), then:
               loss and the per-round test accuracy must agree;
 8. fig4       runs the port's Fig. 4 benchmark on the card; bkd_cached must
               equal bkd;
-9. kernels    prints one JSON line per the port's kernel table.
+9. kdq        holds the dequant-fused ``kd_quant_stats_fwd``/
+              ``kd_quant_grad_bwd`` and ``ops.kd_loss_quant``'s loss and
+              gradient against their plain versions (teacher payloads from
+              the port's int8 and int4 codecs) at the FL main path's shape
+              and at the LLM shape, and times them beside the plain
+              versions and their bounds;
+10. fl transport   runs phase 6's ResNet-32 federation with uplink transport
+              (bkd@int8, kd@int4, one bkd@int8 round with R=2 teachers) and
+              checks the uplink bytes against the codec's accounting and
+              that every R=1 Phase-2 step went through the quant pair (R=2
+              decodes and goes through the exact pair);
+11. fl transport parity   the quickstart's MLP federation with int8 on the
+              card and on the CPU: first Phase-2 loss, per-round test
+              accuracy and the round-0 payload codes;
+12. transport bench   the port's transport benchmark (``--smoke``) on the
+              card: identity transport must equal no transport bit for bit;
+13. kernels   prints one JSON line per the port's kernel table.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -57,9 +73,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.benchmarks import fig4_main  # noqa: E402
+from repro_torch.benchmarks import fig4_main, transport_bench  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.resnet32_cifar import RESNET32  # noqa: E402
+from repro_torch.core.distill_engine import DistillEngine  # noqa: E402
 from repro_torch.core.fl import FederatedKD, FLConfig, resnet_adapter  # noqa: E402
 from repro_torch.data import (Dataset, dirichlet_partition,  # noqa: E402
                               make_cifar_like)
@@ -75,6 +92,8 @@ from repro_torch.launch.serve import summarize  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.serve import ServeEngine, build_stream  # noqa: E402
 from repro_torch.serve.paged import pages_for  # noqa: E402
+from repro_torch.transport import parse_codec  # noqa: E402
+from repro_torch.transport.method import PAYLOAD_KEY  # noqa: E402
 
 # H100 SXM data-sheet peaks: HBM3 bandwidth and dense FP32 rate.
 HBM_BYTES_PER_S = 3.35e12
@@ -432,10 +451,12 @@ def _check_kd(rows, v, dtype, buffer, pad, seed):
             (ds.float() - want_ds.float()).abs().max().item())
 
 
-def _time_kd(rows, v, dtype, buffer, pad, copies):
+def _time_kd(shape, dtype, buffer, copies):
     """Device ms of (fwd kernel, bwd kernel, fwd plain, bwd plain), each
     replayed from a CUDA graph over ``copies`` input sets."""
-    sets = _kd_inputs(rows, v, dtype, buffer, pad, seed=9, copies=copies)
+    rows = shape["rows"]
+    sets = _kd_inputs(rows, shape["v"], dtype, buffer, shape.get("pad", 0),
+                      seed=9, copies=copies)
     fwd = [(y, s, t, b) for y, s, t, b, _ in sets]
     stats = [kd_mod.kd_stats_fwd(*a, TAU) for a in fwd]
     bwd = [(y, g, st, s, t, b) for (y, s, t, b, g), st in zip(sets, stats)]
@@ -443,6 +464,41 @@ def _time_kd(rows, v, dtype, buffer, pad, copies):
             time_ms(lambda *a: kd_mod.kd_grad_bwd(*a, TAU, 1.0 / rows), bwd),
             time_ms(lambda *a: kref.kd_stats_ref(*a, TAU), fwd),
             time_ms(lambda *a: kref.kd_grad_ref(*a, TAU, 1.0 / rows), bwd))
+
+
+def _time_pair(tag, names, replaces, time_fn, bounds_fn, abs_errs):
+    """Times a (forward, backward) kd kernel pair and its plain versions at
+    the main path's shape (f32, with and without buffer) and the LLM shape
+    (f32 and bf16, with buffer) beside its bounds.  Returns the pair's
+    kernel-table entries at the main path's shape with buffer (launches
+    filled in by an fl phase)."""
+    entries = []
+    for label, shape, dtype, copies in (
+            ("main path", KD_MAIN, torch.float32, 8),
+            ("LLM", KD_LLM, torch.float32, 2),
+            ("LLM", KD_LLM, torch.bfloat16, 2)):
+        rows, v = shape["rows"], shape["v"]
+        for buffer in (False, True) if label == "main path" else (True,):
+            ms = time_fn(shape, dtype, buffer, copies)
+            bounds = bounds_fn(rows, v, torch.finfo(dtype).bits // 8, buffer)
+            for k, name in enumerate(names):
+                print(f"[{tag}] {name} {label} rows={rows} V={v} "
+                      f"{str(dtype).split('.')[-1]} buffer={buffer}: kernel "
+                      f"{ms[k]:.5f} ms, plain {ms[k + 2]:.5f} ms, bound "
+                      f"{bounds[k][0]:.5f} ms ({bounds[k][1]}), "
+                      f"{bounds[k][0] / ms[k]:.1%} of the bound; library: "
+                      f"none (no single PyTorch call computes this fused "
+                      f"function)")
+            if label == "main path" and buffer:
+                entries += [{
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
+                    "replaces": replaces[k], "launches": None,
+                    "max_abs_err": max(e[k] for e in abs_errs),
+                    "ms": ms[k], "plain_ms": ms[k + 2],
+                    "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                    "library_ms": None} for k, name in enumerate(names)]
+    return entries
 
 
 def phase_kd_kernels():
@@ -454,39 +510,10 @@ def phase_kd_kernels():
                                   buffer=buffer, pad=0, seed=1))
     for dtype in (torch.float32, torch.bfloat16):
         _check_kd(**KD_LLM, dtype=dtype, buffer=True, seed=2)
-    entries = []
-    shapes = [("main path", KD_MAIN, torch.float32, 0, 8),
-              ("LLM", KD_LLM, torch.float32, KD_LLM["pad"], 2),
-              ("LLM", KD_LLM, torch.bfloat16, KD_LLM["pad"], 2)]
-    for label, shape, dtype, pad, copies in shapes:
-        rows, v = shape["rows"], shape["v"]
-        buffers = (False, True) if label == "main path" else (True,)
-        for buffer in buffers:
-            ms = _time_kd(rows, v, dtype, buffer, pad, copies)
-            itemsize = torch.finfo(dtype).bits // 8
-            bounds = _kd_bounds(rows, v, itemsize, buffer)
-            for k, name in enumerate(("kd_stats_fwd", "kd_grad_bwd")):
-                print(f"[kd] {name} {label} rows={rows} V={v} "
-                      f"{str(dtype).split('.')[-1]} buffer={buffer}: kernel "
-                      f"{ms[k]:.5f} ms, plain {ms[k + 2]:.5f} ms, bound "
-                      f"{bounds[k][0]:.5f} ms ({bounds[k][1]}), "
-                      f"{bounds[k][0] / ms[k]:.1%} of the bound; library: "
-                      f"none (no single PyTorch call computes this fused "
-                      f"function)")
-            if label == "main path" and buffer:
-                for k, name in enumerate(("kd_stats_fwd", "kd_grad_bwd")):
-                    entries.append({
-                        "name": name, "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/kd_loss.cu",
-                        "replaces": ("src/repro/kernels/kd_loss.py:244"
-                                     if k == 0 else
-                                     "src/repro/kernels/kd_loss.py:271"),
-                        "launches": None,
-                        "max_abs_err": max(e[k] for e in abs_errs),
-                        "ms": ms[k], "plain_ms": ms[k + 2],
-                        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-                        "library_ms": None})
-    return entries
+    return _time_pair("kd", ("kd_stats_fwd", "kd_grad_bwd"),
+                      ("src/repro/kernels/kd_loss.py:244",
+                       "src/repro/kernels/kd_loss.py:271"),
+                      _time_kd, _kd_bounds, abs_errs)
 
 
 # -- Algorithm 1 on the card ------------------------------------------------
@@ -517,11 +544,20 @@ def _timed(obj, name, times, key):
     setattr(obj, name, wrapper)
 
 
-def _fl_run(silos, method, rounds, r):
+KD_COUNTERS = {"kd_stats_fwd": kd_mod.kd_stats_fwd,
+               "kd_grad_bwd": kd_mod.kd_grad_bwd,
+               "kd_quant_stats_fwd": kd_mod.kd_quant_stats_fwd,
+               "kd_quant_grad_bwd": kd_mod.kd_quant_grad_bwd}
+
+
+def _fl_run(silos, method, rounds, r, transport="none", tag="fl"):
+    """One ResNet-32 federation; returns each kd kernel's launches in it
+    (every count set to 0 just before the run and read just after)."""
     core, edges, test = silos
     cfg = FLConfig(num_edges=3, rounds=rounds, aggregation_r=r, method=method,
                    core_epochs=2, edge_epochs=2, kd_epochs=2, batch_size=128,
-                   lr=0.1, kd_lr=0.02, tau=2.0, loss_backend="auto")
+                   lr=0.1, kd_lr=0.02, tau=2.0, loss_backend="auto",
+                   transport=transport)
     fl = FederatedKD(resnet_adapter(RESNET32), cfg, core, edges, test,
                      device="cuda")
     times = {"phase0": 0.0, "phase1": 0.0}
@@ -529,32 +565,48 @@ def _fl_run(silos, method, rounds, r):
     _timed(fl, "train_round_edges", times, "phase1")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kd_mod.kd_stats_fwd.launches = kd_mod.kd_grad_bwd.launches = 0
+    for c in KD_COUNTERS.values():
+        c.launches = 0
     t0 = time.perf_counter()
     _, hist = fl.run(0, log=None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (kd_mod.kd_stats_fwd.launches, kd_mod.kd_grad_bwd.launches)
+    launches = {n: c.launches for n, c in KD_COUNTERS.items()}
     steps = rounds * cfg.kd_epochs * max(len(core) // min(cfg.batch_size,
                                                         len(core)), 1)
     phase2 = wall - times["phase0"] - times["phase1"]
-    tag = f"{method} R={r}"
+    name = f"{method} R={r}" + (f" {transport}" if transport != "none" else "")
     for h in hist:
-        print(f"[fl] {tag} round {h.round}: edges {h.edges} test_acc "
+        print(f"[{tag}] {name} round {h.round}: edges {h.edges} test_acc "
               f"{h.test_acc:.4f} acc_cur_edge {h.acc_cur_edge:.4f} "
               f"forget_score {h.get('forget_score')} lost {h.get('lost')}")
-    print(f"[fl] {tag}: {rounds} rounds in {wall:.2f}s: phase 0 "
+    print(f"[{tag}] {name}: {rounds} rounds in {wall:.2f}s: phase 0 "
           f"{times['phase0']:.2f}s, phase 1 {times['phase1']:.2f}s, phase 2 "
           f"(with the rounds' metrics passes) {phase2:.2f}s = "
           f"{steps / phase2:.2f} Phase-2 steps/s; max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B; kd_stats_fwd/kd_grad_bwd "
-          f"launches {launches[0]}/{launches[1]} for {steps} Phase-2 steps")
-    check(launches == (steps, steps) and steps > 0,
-          f"{tag}: kernel launches {launches} != Phase-2 steps {steps}")
+          f"{torch.cuda.max_memory_allocated()} B; launches "
+          f"{launches} for {steps} Phase-2 steps")
+    quant = transport in ("int8", "int4") and r == 1
+    want = {"kd_stats_fwd": 0 if quant else steps,
+            "kd_grad_bwd": 0 if quant else steps,
+            "kd_quant_stats_fwd": steps if quant else 0,
+            "kd_quant_grad_bwd": steps if quant else 0}
+    check(launches == want and steps > 0,
+          f"{name}: kernel launches {launches}, want {want}")
     for h in hist:
         vals = [v for v in h.as_dict().values() if isinstance(v, float)]
-        check(all(math.isfinite(v) for v in vals), f"{tag}: non-finite {h}")
-    check(len(hist) == rounds, f"{tag}: {len(hist)} of {rounds} rounds")
+        check(all(math.isfinite(v) for v in vals), f"{name}: non-finite {h}")
+    check(len(hist) == rounds, f"{name}: {len(hist)} of {rounds} rounds")
+    log = fl.distill_engine.uplink_log
+    if transport != "none":
+        per_teacher = parse_codec(transport).payload_bytes(len(core), 100)
+        for rec in log:
+            print(f"[{tag}] {name} round {rec['round']}: uplink "
+                  f"{rec['bytes']} B from {rec['teachers']} teacher(s) "
+                  f"({per_teacher} B per teacher by the codec's accounting)")
+        check(len(log) == rounds and all(
+            rec["bytes"] == per_teacher * rec["teachers"] == per_teacher * r
+            for rec in log), f"{name}: uplink log {log}")
     return launches
 
 
@@ -573,7 +625,8 @@ def phase_fl():
     total = [0, 0]
     for method, rounds, r in (("kd", 3, 1), ("bkd", 3, 1), ("bkd", 1, 2)):
         launches = _fl_run(silos, method, rounds, r)
-        total = [a + b for a, b in zip(total, launches)]
+        total = [a + launches[n] for a, n in zip(
+            total, ("kd_stats_fwd", "kd_grad_bwd"))]
     return total
 
 
@@ -618,6 +671,276 @@ def phase_fig4():
 
 
 
+# -- the dequant-fused KD loss kernels (transport) ---------------------------
+
+
+def _kdq_inputs(rows, v, dtype, buffer, bits, seed=0, copies=1):
+    """Sets of (labels, s, codes, scale, zero, b, g) on the card from a
+    seed: student, teacher and buffer logits of unit scale x 3, the teacher
+    through the port's int8 or int4 codec on the card (int4 unpacked to its
+    int8 container, as the transport hands it to the kernels).  No -1e30
+    pad columns: a payload cannot carry them (the port reads V columns)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    codec = parse_codec(f"int{bits}").transform
+    sets = []
+    for _ in range(copies):
+        s = 3 * torch.randn((rows, v), generator=gen, device="cuda")
+        p = codec.encode(3 * torch.randn((rows, v), generator=gen,
+                                         device="cuda"))
+        b = (3 * torch.randn((rows, v), generator=gen, device="cuda")
+             if buffer else None)
+        y = torch.randint(0, v, (rows,), generator=gen, device="cuda")
+        g = torch.rand(rows, generator=gen, device="cuda") + 0.5
+        sets.append((y, s.to(dtype), codec.unpack_codes(p["codes"], v),
+                     p["scale"], p["zero"],
+                     b.to(dtype) if buffer else None, g))
+    return sets
+
+
+def _kdq_bounds(rows, v, itemsize, buffer):
+    """(fwd, bwd) least times in ms: student (and buffer) logits and the
+    int8 codes read once, labels, scale, zero (and g, stats) read once,
+    stats / ds written once; f32 operations per logit at the CUDA-core peak
+    (those of the exact pair plus the dequant FMA's two)."""
+    per_logit = itemsize * (2 if buffer else 1) + 1
+    out = []
+    for bytes_, ops_per in (
+            (rows * v * per_logit + rows * (8 + 8 + 4 * kd_mod.N_STATS),
+             18 if buffer else 13),
+            (rows * v * (per_logit + itemsize)
+             + rows * (8 + 8 + 4 + 4 * kd_mod.N_STATS), 16 if buffer else 13)):
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = rows * v * ops_per / F32_FLOPS * 1e3
+        out.append((max(t_bytes, t_ops),
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def _check_kdq(rows, v, dtype, buffer, bits, seed):
+    """Quant kernels against their plain versions; ops.kd_loss_quant's loss
+    and autograd gradient against the plain path.  Returns the max abs
+    errors of (stats, ds)."""
+    y, s, codes, scale, zero, b, g = _kdq_inputs(rows, v, dtype, buffer,
+                                                 bits, seed)[0]
+    stats = kd_mod.kd_quant_stats_fwd(y, s, codes, scale, zero, b, TAU)
+    ds = kd_mod.kd_quant_grad_bwd(y, g, stats, s, codes, scale, zero, b, TAU,
+                                  1.0 / rows)
+    torch.cuda.synchronize()
+    want = kref.kd_quant_stats_ref(y, s, codes, scale, zero, b, TAU)
+    want_ds = kref.kd_quant_grad_ref(y, g, want, s, codes, scale, zero, b,
+                                     TAU, 1.0 / rows)
+    s1 = s.clone().requires_grad_()
+    loss = ops.kd_loss_quant(y, s1, codes, scale, zero, b, TAU)
+    loss.backward()
+    s2 = s.clone().requires_grad_()
+    want_loss = kref.kd_loss_mean_ref(y, s2, kref.dequantize(codes, scale,
+                                                             zero), b, TAU)
+    want_loss.backward()
+    errs = {"stats": _rel_err(stats, want), "ds": _rel_err(ds, want_ds),
+            "loss": abs(loss.item() - want_loss.item()) / abs(want_loss.item()),
+            "grad": _rel_err(s1.grad, s2.grad)}
+    tol = TOL[dtype]
+    name = (f"rows={rows} V={v} {str(dtype).split('.')[-1]} buffer={buffer} "
+            f"int{bits}")
+    for what, e in errs.items():
+        check(math.isfinite(e) and e <= tol,
+              f"kdq {what} {name}: relative err {e} > {tol}")
+    check(stats.shape == (rows, kd_mod.N_STATS) and ds.dtype == dtype,
+          f"kdq outputs {tuple(stats.shape)} {ds.dtype}")
+    print(f"[kdq] {name}: relative err stats {errs['stats']:.3g}, ds "
+          f"{errs['ds']:.3g}, loss {errs['loss']:.3g}, autograd grad "
+          f"{errs['grad']:.3g} (limit {tol}; the kernels dequantize with "
+          f"one FMA, the plain version rounds twice)")
+    return ((stats - want).abs().max().item(),
+            (ds.float() - want_ds.float()).abs().max().item())
+
+
+def _time_kdq(shape, dtype, buffer, copies):
+    """Device ms of (fwd kernel, bwd kernel, fwd plain, bwd plain) on int8
+    payloads, each replayed from a CUDA graph over ``copies`` input sets
+    (no pad columns: a payload cannot carry them)."""
+    rows = shape["rows"]
+    sets = _kdq_inputs(rows, shape["v"], dtype, buffer, 8, seed=9,
+                       copies=copies)
+    fwd = [a[:6] for a in sets]
+    stats = [kd_mod.kd_quant_stats_fwd(*a, TAU) for a in fwd]
+    bwd = [(y, g, st, s, c, sc, z, b)
+           for (y, s, c, sc, z, b, g), st in zip(sets, stats)]
+    return (time_ms(lambda *a: kd_mod.kd_quant_stats_fwd(*a, TAU), fwd),
+            time_ms(lambda *a: kd_mod.kd_quant_grad_bwd(*a, TAU, 1.0 / rows),
+                    bwd),
+            time_ms(lambda *a: kref.kd_quant_stats_ref(*a, TAU), fwd),
+            time_ms(lambda *a: kref.kd_quant_grad_ref(*a, TAU, 1.0 / rows),
+                    bwd))
+
+
+def phase_kdq_kernels():
+    """Returns the kernel-table entries of kd_quant_stats_fwd and
+    kd_quant_grad_bwd at the main path's shape (launches filled in by the
+    fl transport phase); timed on int8 payloads."""
+    abs_errs = []
+    for bits in (8, 4):
+        for buffer in (False, True):
+            abs_errs.append(_check_kdq(**KD_MAIN, dtype=torch.float32,
+                                       buffer=buffer, bits=bits, seed=1))
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_kdq(KD_LLM["rows"], KD_LLM["v"], dtype, True, 8, seed=2)
+    return _time_pair("kdq", ("kd_quant_stats_fwd", "kd_quant_grad_bwd"),
+                      ("src/repro/kernels/kd_loss.py:298",
+                       "src/repro/kernels/kd_loss.py:331"),
+                      _time_kdq, _kdq_bounds, abs_errs)
+
+
+def phase_fl_transport():
+    """Phase 6's ResNet-32 federation with uplink transport.  Returns the
+    quant pair's launches over the phase."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    silos = _cifar_silos()
+    total = {n: 0 for n in KD_COUNTERS}
+    for method, rounds, r, spec in (("bkd", 3, 1, "int8"),
+                                    ("kd", 3, 1, "int4"),
+                                    ("bkd", 1, 2, "int8")):
+        launches = _fl_run(silos, method, rounds, r, transport=spec,
+                           tag="fl transport")
+        total = {n: total[n] + launches[n] for n in total}
+    print(f"[fl transport] launches over the phase: {total}")
+    _phase2_ab(silos)
+    return [total["kd_quant_stats_fwd"], total["kd_quant_grad_bwd"]]
+
+
+def _phase2_ab(silos, pairs=3):
+    """Wall seconds of one bkd Phase-2 round on the same student
+    and teacher, without transport and with int8 (the fused path, which
+    skips the step's teacher forward), run in turns (none, int8, int8,
+    none, ...) after one warm-up each: host speed drifts within a call,
+    so only runs in turns compare."""
+    core, edges, test = silos
+    adapter = resnet_adapter(RESNET32)
+    cfg = FLConfig(num_edges=3, rounds=1, method="bkd", core_epochs=2,
+                   edge_epochs=2, kd_epochs=2, batch_size=128, lr=0.1,
+                   kd_lr=0.02, tau=2.0, loss_backend="auto")
+    fl = FederatedKD(adapter, cfg, core, edges, test, device="cuda")
+    state = fl.pretrain_core(0)
+    teachers = fl.train_round_edges([state], [0], seed=0)
+    engines = {spec: DistillEngine(adapter, dataclasses.replace(
+        cfg, transport=spec), core, "cuda") for spec in ("none", "int8")}
+    secs = {spec: [] for spec in engines}
+    order = ["none", "int8"] + ["none", "int8", "int8", "none"] * (
+        (pairs + 1) // 2)
+    for k, spec in enumerate(order[:2 + 2 * pairs]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[spec].run(state, teachers, 0)
+        torch.cuda.synchronize()
+        if k >= 2:                      # the first of each is a warm-up
+            secs[spec].append(time.perf_counter() - t0)
+    med = {spec: float(np.median(v)) for spec, v in secs.items()}
+    steps = cfg.kd_epochs * (len(core) // cfg.batch_size)
+    print(f"[fl transport] Phase-2 round of bkd, {steps} steps, in turns: "
+          f"none {[round(v, 4) for v in secs['none']]} s, int8 "
+          f"{[round(v, 4) for v in secs['int8']]} s; medians none "
+          f"{med['none']:.4f} s ({steps / med['none']:.2f} steps/s), int8 "
+          f"{med['int8']:.4f} s ({steps / med['int8']:.2f} steps/s)")
+
+
+def phase_fl_transport_parity():
+    """The quickstart's MLP federation with int8 transport (bkd, 2 rounds,
+    f32, TF32 off) on the card (quant kernels) and on the CPU (plain
+    versions) from one initial state: the round-0 payload codes, the first
+    Phase-2 loss and the per-round test accuracy.
+
+    The codec puts each row's minimum exactly on a rounding tie (its
+    quotient is -127.5), so teacher logits ~1e-6 apart can give codes one
+    step apart there, and a payload differs in whole steps.  The first
+    loss is therefore held at 1e-5 on equal payloads (the CPU stepper is
+    handed the card's); the loss on each side's own payload is reported."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core.buffer import core_logits
+    adapter, core, edges, test = quickstart.setup()
+    init = params_to_numpy(adapter.init(torch.Generator().manual_seed(0),
+                                        "cpu"))
+    adapter = dataclasses.replace(
+        adapter, init=lambda gen, device: params_from_numpy(init, device))
+    cfg = quickstart.config("bkd", rounds=2, transport="int8")
+    first, accs, payload, logits, logs = {}, {}, {}, {}, {}
+    for device in ("cuda", "cpu"):
+        fl = FederatedKD(adapter, cfg, core, edges, test, device=device)
+        state = fl.pretrain_core(0)
+        teachers = fl.train_round_edges([state], [0], seed=cfg.seed)
+        stepper = fl.distill_stepper(state, teachers, 0, edge_ids=[0])
+        payload[device] = stepper.mstate["cache"][PAYLOAD_KEY]
+        logits[device] = core_logits(adapter, teachers[0], core).cpu()
+        stepper.step(max_steps=1)
+        first[device] = stepper.losses[0].item()
+        if device == "cpu":
+            twin = fl.distill_stepper(state, teachers, 0, edge_ids=[0])
+            twin.mstate["cache"][PAYLOAD_KEY] = {
+                k: v.cpu() for k, v in payload["cuda"].items()}
+            twin.step(max_steps=1)
+            first["cpu, card payload"] = twin.losses[0].item()
+        fl = FederatedKD(adapter, cfg, core, edges, test, device=device)
+        _, hist = fl.run(0, log=None)
+        accs[device] = [h["test_acc"] for h in hist]
+        logs[device] = fl.distill_engine.uplink_log
+    rel = (abs(first["cuda"] - first["cpu, card payload"])
+           / abs(first["cpu, card payload"]))
+    rel_own = abs(first["cuda"] - first["cpu"]) / abs(first["cpu"])
+    gap = max(abs(a - b) for a, b in zip(accs["cuda"], accs["cpu"]))
+    pc, pg = ({k: v[:, 0].cpu() for k, v in payload[d].items()}
+              for d in ("cpu", "cuda"))
+    diff = (pc["codes"] != pg["codes"]).nonzero().tolist()
+    # A differing code must sit on a rounding boundary: its quotient
+    # (x - zero) / scale within 1e-3 of a half-integer on the CPU side, and
+    # the two codes one step apart.
+    x = logits["cpu"].double()
+    q = (x - pc["zero"].double()[:, None]) / pc["scale"].double()[:, None]
+    on_edge = [abs(abs(q[r, c] - q[r, c].floor()) - 0.5) < 1e-3 and abs(
+        int(pc["codes"][r, c]) - int(pg["codes"][r, c])) == 1
+        for r, c in diff]
+    at_min = sum(abs(q[r, c] + 127.5) < 1e-3 for r, c in diff)
+    lg_rel = ((logits["cuda"] - logits["cpu"]).abs().max()
+              / logits["cpu"].abs().max()).item()
+    sc_rel = ((pg["scale"] - pc["scale"]).abs().max()
+              / pc["scale"].abs().max()).item()
+    print(f"[fl transport parity] bkd@int8 round-0 payload: teacher logits "
+          f"relative diff {lg_rel:.3g}, scale {sc_rel:.3g}; {len(diff)} of "
+          f"{pc['codes'].numel()} codes ({pc['codes'].shape[0]} rows) "
+          f"differ, {sum(on_edge)} of them on a rounding boundary, "
+          f"{at_min} at a row's minimum (quotient -127.5)")
+    print(f"[fl transport parity] first Phase-2 loss card {first['cuda']:.7f}"
+          f", cpu on the card's payload {first['cpu, card payload']:.7f} "
+          f"(relative {rel:.3g}, limit 1e-5), cpu on its own payload "
+          f"{first['cpu']:.7f} (relative {rel_own:.3g}); test_acc card "
+          f"{accs['cuda']} cpu {accs['cpu']} (max gap {gap:.4f}, limit "
+          f"0.02); uplink logs equal {logs['cuda'] == logs['cpu']}")
+    check(all(on_edge), f"transport: codes differ off a rounding boundary "
+          f"at {[d for d, e in zip(diff, on_edge) if not e][:10]}")
+    check(rel <= 1e-5, f"transport: first Phase-2 loss differs by {rel}")
+    check(gap <= 0.02, f"transport: test_acc differs by {gap}")
+    check(logs["cuda"] == logs["cpu"], "transport: uplink logs differ")
+
+
+def phase_transport_bench():
+    """The port's transport benchmark at --smoke sizes on the card."""
+    t0 = time.perf_counter()
+    out = transport_bench.bench_frontier("none", rounds=2, num_edges=4,
+                                         epochs=(3, 3, 2), seed=0,
+                                         device="cuda")
+    for p in [dict(out["baseline"], codec="none")] + out["frontier"]:
+        print(f"[transport bench] {p['codec']}: final_acc {p['final_acc']} "
+              f"mean_acc {p['mean_acc']} uplink {p['uplink_bytes']} B "
+              f"({p.get('compression_vs_identity')}x vs identity) in "
+              f"{p['seconds']}s")
+    ok = transport_bench.gates({"none": out})
+    print(f"[transport bench] {time.perf_counter() - t0:.1f}s; "
+          f"identity_bit_for_bit {out['identity_bit_for_bit']}; gates {ok}")
+    check(out["identity_bit_for_bit"],
+          "transport bench: identity differs from no transport")
+    check(ok, "transport bench: a gate failed")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -644,7 +967,13 @@ def main():
         e["launches"] = n
     phase_fl_parity()
     phase_fig4()
-    print(json.dumps({"kernels": [entry] + kd_entries}))
+    kdq_entries = phase_kdq_kernels()
+    launches = phase_fl_transport()
+    for e, n in zip(kdq_entries, launches):
+        e["launches"] = n
+    phase_fl_transport_parity()
+    phase_transport_bench()
+    print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries}))
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

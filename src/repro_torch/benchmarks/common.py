@@ -40,18 +40,20 @@ def build_setup(num_classes=10, dim=32, per_class=360, num_edges=5, seed=0,
 def run_method(method, *, rounds=5, num_edges=5, aggregation_r=1,
                straggler="none", withdraw=False, kd_warm_rounds=0, seed=0,
                resnet=False, epochs=(10, 10, 5), scenario=None,
-               device="cuda"):
+               transport="none", device="cuda"):
     """Run one method end-to-end on ``device``; returns (history, seconds).
     ``scenario`` (a synchronous name from
     ``repro_torch.core.scheduler.SCENARIOS``) overrides the legacy
-    straggler/withdraw strings."""
+    straggler/withdraw strings; ``transport`` is a codec spec from
+    ``repro_torch.transport`` (or "none")."""
     adapter, core, edges, test = build_setup(num_edges=num_edges, seed=seed,
                                              resnet=resnet)
     cfg = FLConfig(num_edges=num_edges, rounds=rounds, method=method,
                    aggregation_r=aggregation_r, straggler=straggler,
                    withdraw=withdraw, kd_warm_rounds=kd_warm_rounds,
                    core_epochs=epochs[0], edge_epochs=epochs[1],
-                   kd_epochs=epochs[2], batch_size=128, seed=seed)
+                   kd_epochs=epochs[2], batch_size=128, seed=seed,
+                   transport=transport)
     scheduler = None
     if scenario is not None:
         from repro_torch.core.scheduler import build_scenario

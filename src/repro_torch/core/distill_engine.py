@@ -34,6 +34,14 @@ Loss backends (``FLConfig.loss_backend``):
                    "jnp" when the method does not support it (FedDF).
 
 The names are the reference's, so configurations carry over.
+
+Uplink transport (``FLConfig.transport``, a codec spec from
+``repro_torch.transport``, or "none"): the round's method is wrapped in a
+:class:`repro_torch.transport.TransportMethod`, and every round's uplink
+bytes under the codec's accounting go to ``DistillEngine.uplink_log``.
+With ``int8``/``int4`` and one teacher on the "pallas" backend, every step
+runs the dequant-fused kernel pair ``kd_quant_stats_fwd``/
+``kd_quant_grad_bwd``.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.buffer import core_logits
 from repro_torch.core.methods import MethodContext, resolve_method
 from repro_torch.data.pipeline import batches
 from repro_torch.optim import sgd_momentum, step_decay
@@ -48,9 +57,6 @@ from repro_torch.tree import (stack_trees, tree_leaves, tree_map,
                               tree_unflatten)
 
 BACKENDS = ("auto", "jnp", "pallas", "topk_cached")
-
-_TRANSPORT_NOT_PORTED = ("not ported yet (ROADMAP.md queue 1, slice 5: "
-                         "transport)")
 
 
 def resolve_backend(backend: str, method, device) -> str:
@@ -105,7 +111,8 @@ def make_step_impl(adapter, opt, cfg, method, backend):
             learned = learned.detach().requires_grad_()
         st = adapter.with_params(state, tree_unflatten(params, leaves))
         lg, new_state = adapter.logits(st, x, True)
-        tls = teacher_logits(adapter, tstack, x)
+        tls = (teacher_logits(adapter, tstack, x)
+               if meth.wants_teacher_logits(cache) else None)
         loss = meth.loss(ctx, lg, tls, y, x=x, student_state=st,
                          frozen=frozen, cache=cache, learned=learned,
                          tstack=tstack)
@@ -138,13 +145,67 @@ class DistillEngine:
         self.adapter, self.cfg = adapter, cfg
         self.core_ds = core_ds
         self.device = torch.device(device)
-        transport = getattr(cfg, "transport", "none") or "none"
-        if transport != "none":
-            raise NotImplementedError(
-                f"transport {transport!r} is {_TRANSPORT_NOT_PORTED}")
         self._data = None    # device copy of the core set
         self._opt = None
         self._fns = {}       # (method, backend) -> step function
+        # Uplink transport: parsed once so a bad spec fails at
+        # construction, not round 5.  Wrapped methods are cached per inner
+        # name so the step-function cache stays keyed on one instance.
+        # (repro_torch.transport imports this package: imported here.)
+        transport = getattr(cfg, "transport", "none") or "none"
+        if transport == "none":
+            self._codec = None
+        else:
+            from repro_torch.transport import parse_codec
+            self._codec = parse_codec(transport)
+        self._wrapped = {}
+        self._vocab = None
+        #: One record per distillation round: round, method, codec, teacher
+        #: count, and the round's total uplink bytes under the codec's
+        #: accounting (full_round methods ship parameters, not logits).
+        self.uplink_log = []
+
+    @property
+    def uplink_bytes_total(self):
+        return sum(rec["bytes"] for rec in self.uplink_log)
+
+    def _vocab_size(self, state):
+        if self._vocab is None:
+            with torch.no_grad():
+                lg, _ = self.adapter.logits(
+                    state, torch.as_tensor(self.core_ds.x[:1],
+                                           device=self.device), False)
+            self._vocab = int(lg.shape[-1])
+        return self._vocab
+
+    def _wrap(self, meth):
+        """The transport-wrapped view of ``meth`` (cached per inner name)."""
+        from repro_torch.transport import TransportMethod
+        if meth.name not in self._wrapped:
+            self._wrapped[meth.name] = TransportMethod(meth, self._codec)
+        return self._wrapped[meth.name]
+
+    def _account(self, meth, teacher_states, round_idx):
+        """Log this round's uplink bytes.  Gradient methods ship each
+        teacher's core-set logits through the codec; full_round methods
+        (FedAvg) ship raw f32 parameters — the codec does not apply."""
+        if self._codec is None:
+            return
+        if meth.full_round:
+            total = sum(4 * leaf.numel() for t in teacher_states
+                        for leaf in tree_leaves(self.adapter.params(t)))
+        else:
+            n = len(self.core_ds)
+            v = self._vocab_size(teacher_states[0])
+            total = 0
+            for t in teacher_states:
+                lg = (core_logits(self.adapter, t, self.core_ds)
+                      if self._codec.needs_logits else None)
+                total += self._codec.payload_bytes(n, v, logits=lg)
+        self.uplink_log.append({"round": round_idx, "method": meth.name,
+                                "codec": self._codec.spec,
+                                "teachers": len(teacher_states),
+                                "bytes": int(total)})
 
     def _device_data(self):
         if self._data is None:
@@ -227,6 +288,7 @@ class RoundStepper:
         self.i = 0
         name = method or cfg.method
         meth = resolve_method(name)
+        engine._account(meth, teacher_states, round_idx)
         ctx = MethodContext(adapter=adapter, cfg=cfg, core_ds=engine.core_ds,
                             round_idx=round_idx,
                             teacher_weights=teacher_weights)
@@ -237,6 +299,11 @@ class RoundStepper:
             return
         self._full = None
         ctx.backend = engine._round_backend(name, meth)
+        if engine._codec is not None:
+            # Teachers are observed through the uplink codec; the wrapper is
+            # itself a DistillMethod, so the lifecycle below is unchanged.
+            meth = engine._wrap(meth)
+            name = meth   # step-function cache key: the stable wrapper
         self.meth, self.ctx = meth, ctx
         opt = engine._optimizer()
         self.state, self.mstate = meth.init_round(ctx, state, teacher_states)

@@ -15,6 +15,10 @@ strings), Phase 1 runs the R edges of a round together
 Phase 2 runs through ``core/distill_engine.py`` with a pluggable loss
 backend.  On a CUDA device ``loss_backend="auto"`` sends every Phase-2
 loss through the hand-written kernel pair ``kd_stats_fwd``/``kd_grad_bwd``.
+``FLConfig.transport`` puts an edge→core uplink codec between the teachers
+and the core (``repro_torch.transport``); with ``int8``/``int4`` and one
+teacher a round the loss runs on the dequant-fused pair
+``kd_quant_stats_fwd``/``kd_quant_grad_bwd`` instead.
 
 States are nested dicts of tensors with the reference's keys and layouts
 (``repro_torch.interop`` moves them between the packages), and every
@@ -117,7 +121,9 @@ class FLConfig:
     scan: bool = True
     loss_backend: str = "auto"
     cache_topk: int = 8               # k for loss_backend="topk_cached"
-    # Edge->core uplink transport: only "none" is ported.
+    # Edge->core uplink transport: "none" or a codec spec from
+    # repro_torch.transport ("identity", "topk:k", "int8", "int4",
+    # "entropy:T", "+"-compositions); bytes go to distill_engine.uplink_log.
     transport: str = "none"
 
 

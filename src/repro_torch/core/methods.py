@@ -151,6 +151,12 @@ class DistillMethod:
         (frozen) teacher logits ``tls`` ``(R, B, V)``."""
         raise NotImplementedError
 
+    def wants_teacher_logits(self, cache) -> bool:
+        """Whether the step must compute the teacher logits ``tls`` for
+        :meth:`loss` (False where the teachers arrive another way, as a
+        transport payload in ``cache``)."""
+        return True
+
     def learned(self, step_state):
         """The differentiable part of the step state (``learns_aux`` only)."""
         return None

@@ -2,8 +2,9 @@
 // student gradient, plain C interface.
 //
 // Replaces the TPU kernels src/repro/kernels/kd_loss.py::kd_stats_fwd
-// (bodies _fwd_kernel/_fwd_body/_online_update) and ::kd_grad_bwd
-// (_bwd_kernel/_bwd_body).  For rows of student logits s, teacher logits t
+// (bodies _fwd_kernel/_fwd_body/_online_update), ::kd_grad_bwd
+// (_bwd_kernel/_bwd_body), ::kd_quant_stats_fwd (_quant_fwd_kernel/
+// _dequant_tile) and ::kd_quant_grad_bwd (_quant_bwd_kernel).  For rows of student logits s, teacher logits t
 // and (optionally) buffer logits b over a vocabulary of V, the forward
 // computes in one pass, without materialising any softmax, the 11 stats of
 // a row
@@ -26,7 +27,8 @@
 // and a few multiply-adds against 4 (or 2) bytes read per tensor, about 10
 // operations a byte, under the card's f32 balance of ~20; the backward is
 // the same.  The least time is the logits read once (and ds written once)
-// over 3.35 TB/s.
+// over 3.35 TB/s.  The quant pair reads 1 byte of teacher per logit and
+// adds one FMA, so it is more bytes-bound still, with a lower bound.
 //
 // Design.  The TPU grid (row blocks, vocab tiles) runs its vocab axis in
 // order and carries the online (max, denominator, numerators) state in VMEM
@@ -43,6 +45,19 @@
 // backward is elementwise: a 2-D grid of (row, 1024-column chunk) blocks
 // whose threads read the row's stats once and write four columns each.
 // Any V is taken; pad columns of -1e30 contribute exactly zero.
+//
+// The quant pair takes the teacher as a transport payload: int8 codes
+// (rows, V) and a per-row f32 affine, t = code * scale[row] + zero[row].
+// As on the TPU, the exact and quant kernels share their tile math and
+// differ only in the teacher reader: ExactTeacher loads T, QuantTeacher
+// loads one int8 code and dequantizes it in registers (scale and zero are
+// read once per row), so the f32 teacher never exists in device memory and
+// the teacher costs 1 byte per logit instead of 4 (or 2).  The dequant is
+// written as fmaf(code, scale, zero): one rounding, where the plain version
+// rounds the product and the sum; the difference is in the last bit of t.
+// The TPU kernel pads codes to its 128-lane tile and masks the pad columns
+// by index; these kernels read exactly V columns, so there is nothing to
+// mask.
 //
 // Not done yet (later work): several rows per block when V is small (the
 // FL main path's V = 100 leaves most of a block idle), and 16-byte loads
@@ -144,16 +159,50 @@ struct RowState {
   }
 };
 
-template <typename T, bool kBuffer>
+// Teacher readers: row(r, V) gives a functor from a column of row r to
+// the teacher's logit there, in f32.
+template <typename T>
+struct ExactTeacher {
+  const T* __restrict__ t;
+
+  struct Row {
+    const T* __restrict__ p;
+    __device__ __forceinline__ float operator()(int c) const {
+      return to_f32(p[c]);
+    }
+  };
+  __device__ __forceinline__ Row row(int r, int V) const {
+    return Row{t + static_cast<int64_t>(r) * V};
+  }
+};
+
+struct QuantTeacher {
+  const int8_t* __restrict__ codes;
+  const float* __restrict__ scale;
+  const float* __restrict__ zero;
+
+  struct Row {
+    const int8_t* __restrict__ p;
+    float scale, zero;
+    __device__ __forceinline__ float operator()(int c) const {
+      return fmaf(static_cast<float>(p[c]), scale, zero);
+    }
+  };
+  __device__ __forceinline__ Row row(int r, int V) const {
+    return Row{codes + static_cast<int64_t>(r) * V, scale[r], zero[r]};
+  }
+};
+
+template <typename T, typename Teacher, bool kBuffer>
 __global__ void __launch_bounds__(kThreads)
     kd_stats_kernel(const int64_t* __restrict__ labels,
-                    const T* __restrict__ s, const T* __restrict__ t,
+                    const T* __restrict__ s, const Teacher teacher,
                     const T* __restrict__ b, float* __restrict__ stats, int V,
                     float inv_tau) {
   const int row = blockIdx.x;
   const int64_t base = static_cast<int64_t>(row) * V;
   const T* sr = s + base;
-  const T* tr = t + base;
+  const auto tr = teacher.row(row, V);
   const T* br = kBuffer ? b + base : nullptr;
 
   RowState st;
@@ -165,7 +214,7 @@ __global__ void __launch_bounds__(kThreads)
       const int c = c0 + k * kThreads;
       const bool in = c < V;
       xs[k] = in ? to_f32(sr[c]) : 0.f;
-      xt[k] = in ? to_f32(tr[c]) : 0.f;
+      xt[k] = in ? tr(c) : 0.f;
       if (kBuffer) xb[k] = in ? to_f32(br[c]) : 0.f;
     }
 #pragma unroll
@@ -214,12 +263,12 @@ __global__ void __launch_bounds__(kThreads)
   out[10] = 0.f;
 }
 
-template <typename T, bool kBuffer>
+template <typename T, typename Teacher, bool kBuffer>
 __global__ void __launch_bounds__(kThreads)
     kd_grad_kernel(const int64_t* __restrict__ labels,
                    const float* __restrict__ g,
                    const float* __restrict__ stats, const T* __restrict__ s,
-                   const T* __restrict__ t, const T* __restrict__ b,
+                   const Teacher teacher, const T* __restrict__ b,
                    T* __restrict__ ds, int V, float tau, float inv_tau,
                    float mean_scale) {
   const int row = blockIdx.x;
@@ -229,6 +278,7 @@ __global__ void __launch_bounds__(kThreads)
   const float gs = g[row] * mean_scale;
   const int64_t y = labels[row];
   const int64_t base = static_cast<int64_t>(row) * V;
+  const auto tr = teacher.row(row, V);
   const int c0 = blockIdx.y * kThreads * kUnroll + threadIdx.x;
   float xs[kUnroll], xt[kUnroll], xb[kUnroll];
 #pragma unroll
@@ -236,7 +286,7 @@ __global__ void __launch_bounds__(kThreads)
     const int c = c0 + k * kThreads;
     const bool in = c < V;
     xs[k] = in ? to_f32(s[base + c]) : 0.f;
-    xt[k] = in ? to_f32(t[base + c]) : 0.f;
+    xt[k] = in ? tr(c) : 0.f;
     if (kBuffer) xb[k] = in ? to_f32(b[base + c]) : 0.f;
   }
 #pragma unroll
@@ -252,45 +302,51 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-int launch_fwd(const void* labels, const void* s, const void* t, const void* b,
-               void* stats, int rows, int V, float inv_tau, cudaStream_t st) {
+template <typename T, typename Teacher>
+int launch_fwd(const void* labels, const void* s, const Teacher& teacher,
+               const void* b, void* stats, int rows, int V, float inv_tau,
+               cudaStream_t st) {
   const auto* y = static_cast<const int64_t*>(labels);
   const auto* sp = static_cast<const T*>(s);
-  const auto* tp = static_cast<const T*>(t);
   const auto* bp = static_cast<const T*>(b);
   auto* out = static_cast<float*>(stats);
   if (b != nullptr) {
-    kd_stats_kernel<T, true><<<rows, kThreads, 0, st>>>(y, sp, tp, bp, out, V,
-                                                        inv_tau);
+    kd_stats_kernel<T, Teacher, true><<<rows, kThreads, 0, st>>>(
+        y, sp, teacher, bp, out, V, inv_tau);
   } else {
-    kd_stats_kernel<T, false><<<rows, kThreads, 0, st>>>(y, sp, tp, bp, out,
-                                                         V, inv_tau);
+    kd_stats_kernel<T, Teacher, false><<<rows, kThreads, 0, st>>>(
+        y, sp, teacher, bp, out, V, inv_tau);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename Teacher>
 int launch_bwd(const void* labels, const void* g, const void* stats,
-               const void* s, const void* t, const void* b, void* ds, int rows,
-               int V, float tau, float inv_tau, float mean_scale,
+               const void* s, const Teacher& teacher, const void* b, void* ds,
+               int rows, int V, float tau, float inv_tau, float mean_scale,
                cudaStream_t st) {
   const dim3 grid(rows, (V + kThreads * kUnroll - 1) / (kThreads * kUnroll));
   const auto* y = static_cast<const int64_t*>(labels);
   const auto* gp = static_cast<const float*>(g);
   const auto* sp = static_cast<const float*>(stats);
   const auto* lp = static_cast<const T*>(s);
-  const auto* tp = static_cast<const T*>(t);
   const auto* bp = static_cast<const T*>(b);
   auto* out = static_cast<T*>(ds);
   if (b != nullptr) {
-    kd_grad_kernel<T, true><<<grid, kThreads, 0, st>>>(
-        y, gp, sp, lp, tp, bp, out, V, tau, inv_tau, mean_scale);
+    kd_grad_kernel<T, Teacher, true><<<grid, kThreads, 0, st>>>(
+        y, gp, sp, lp, teacher, bp, out, V, tau, inv_tau, mean_scale);
   } else {
-    kd_grad_kernel<T, false><<<grid, kThreads, 0, st>>>(
-        y, gp, sp, lp, tp, bp, out, V, tau, inv_tau, mean_scale);
+    kd_grad_kernel<T, Teacher, false><<<grid, kThreads, 0, st>>>(
+        y, gp, sp, lp, teacher, bp, out, V, tau, inv_tau, mean_scale);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+QuantTeacher quant_teacher(const void* codes, const void* scale,
+                           const void* zero) {
+  return QuantTeacher{static_cast<const int8_t*>(codes),
+                      static_cast<const float*>(scale),
+                      static_cast<const float*>(zero)};
 }
 
 }  // namespace
@@ -304,10 +360,15 @@ extern "C" int kd_stats_fwd(const void* labels, const void* s, const void* t,
                             float inv_tau, int is_bf16, void* stream) {
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_fwd<__nv_bfloat16>(labels, s, t, b, stats, rows, V,
-                                             inv_tau, st)
-                 : launch_fwd<float>(labels, s, t, b, stats, rows, V, inv_tau,
-                                     st);
+  return is_bf16
+             ? launch_fwd<__nv_bfloat16>(
+                   labels, s,
+                   ExactTeacher<__nv_bfloat16>{
+                       static_cast<const __nv_bfloat16*>(t)},
+                   b, stats, rows, V, inv_tau, st)
+             : launch_fwd<float>(
+                   labels, s, ExactTeacher<float>{static_cast<const float*>(t)},
+                   b, stats, rows, V, inv_tau, st);
 }
 
 // As kd_stats_fwd, plus g (rows,) f32 and the forward's stats; ds (rows, V)
@@ -319,6 +380,44 @@ extern "C" int kd_grad_bwd(const void* labels, const void* g,
                            void* stream) {
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16
+             ? launch_bwd<__nv_bfloat16>(
+                   labels, g, stats, s,
+                   ExactTeacher<__nv_bfloat16>{
+                       static_cast<const __nv_bfloat16*>(t)},
+                   b, ds, rows, V, tau, inv_tau, mean_scale, st)
+             : launch_bwd<float>(
+                   labels, g, stats, s,
+                   ExactTeacher<float>{static_cast<const float*>(t)}, b, ds,
+                   rows, V, tau, inv_tau, mean_scale, st);
+}
+
+// As kd_stats_fwd with the teacher given as codes (rows, V) int8 and
+// scale, zero (rows,) f32: t = code * scale[row] + zero[row].
+extern "C" int kd_quant_stats_fwd(const void* labels, const void* s,
+                                  const void* codes, const void* scale,
+                                  const void* zero, const void* b,
+                                  void* stats, int rows, int V, float inv_tau,
+                                  int is_bf16, void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const QuantTeacher t = quant_teacher(codes, scale, zero);
+  return is_bf16 ? launch_fwd<__nv_bfloat16>(labels, s, t, b, stats, rows, V,
+                                             inv_tau, st)
+                 : launch_fwd<float>(labels, s, t, b, stats, rows, V, inv_tau,
+                                     st);
+}
+
+// As kd_grad_bwd with the teacher given as in kd_quant_stats_fwd.
+extern "C" int kd_quant_grad_bwd(const void* labels, const void* g,
+                                 const void* stats, const void* s,
+                                 const void* codes, const void* scale,
+                                 const void* zero, const void* b, void* ds,
+                                 int rows, int V, float tau, float inv_tau,
+                                 float mean_scale, int is_bf16, void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const QuantTeacher t = quant_teacher(codes, scale, zero);
   return is_bf16 ? launch_bwd<__nv_bfloat16>(labels, g, stats, s, t, b, ds,
                                              rows, V, tau, inv_tau, mean_scale,
                                              st)

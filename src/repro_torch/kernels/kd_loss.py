@@ -3,8 +3,11 @@
 ``csrc/kd_loss.cu`` holds the counterparts of the TPU kernels
 ``repro/kernels/kd_loss.py::kd_stats_fwd`` (one pass of online logsumexp
 giving 11 stats per row) and ``::kd_grad_bwd`` (the student gradient from
-those stats).  It is built at first use by ``repro_torch.kernels.build``
-and bound with ``ctypes``; nothing is built or loaded when this module is
+those stats), and of their quant variants ``::kd_quant_stats_fwd`` and
+``::kd_quant_grad_bwd``, which read the teacher as a transport payload
+(int8 codes and a per-row f32 scale and zero) and dequantize it in
+registers.  It is built at first use by ``repro_torch.kernels.build`` and
+bound with ``ctypes``; nothing is built or loaded when this module is
 imported.  ``assemble_loss`` turns the stats into the per-row loss, as in
 the JAX package.
 """
@@ -38,13 +41,22 @@ def _library():
     lib.kd_stats_fwd.restype = i32
     lib.kd_grad_bwd.argtypes = [ptr] * 7 + [i32, i32, f32, f32, f32, i32, ptr]
     lib.kd_grad_bwd.restype = i32
+    lib.kd_quant_stats_fwd.argtypes = [ptr] * 7 + [i32, i32, f32, i32, ptr]
+    lib.kd_quant_stats_fwd.restype = i32
+    lib.kd_quant_grad_bwd.argtypes = [ptr] * 9 + [i32, i32, f32, f32, f32,
+                                                  i32, ptr]
+    lib.kd_quant_grad_bwd.restype = i32
     return lib
 
 
 def _check(labels, s, t, b, name):
+    """Checks of the labels, the student and the logits that share its
+    dtype and shape (teacher ``t``, None for the quant pair, and buffer
+    ``b``)."""
     if s.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {s.device}")
-    named = [("labels", labels), ("teacher", t)] + (
+    named = [("labels", labels)] + (
+        [("teacher", t)] if t is not None else []) + (
         [("buffer", b)] if b is not None else [])
     for what, x in named:
         if x.device != s.device:
@@ -76,6 +88,39 @@ def _check(labels, s, t, b, name):
             raise ValueError(f"{what} must be contiguous")
 
 
+def _check_payload(s, codes, scale, zero):
+    """The quant pair's teacher: codes int8 of the student's shape, scale
+    and zero float32 (rows,), all contiguous on the student's device."""
+    rows = s.shape[0]
+    for what, x in (("codes", codes), ("scale", scale), ("zero", zero)):
+        if x.device != s.device:
+            raise ValueError(f"{what} on {x.device}, student on {s.device}")
+    if codes.dtype != torch.int8:
+        raise TypeError(f"codes must be int8, got {codes.dtype}")
+    if codes.shape != s.shape:
+        raise ValueError(f"codes {tuple(codes.shape)} != student "
+                         f"{tuple(s.shape)}")
+    for what, x in (("scale", scale), ("zero", zero)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{what} must be float32, got {x.dtype}")
+        if x.shape != (rows,):
+            raise ValueError(f"{what} {tuple(x.shape)} does not match "
+                             f"{rows} rows")
+    for what, x in (("codes", codes), ("scale", scale), ("zero", zero)):
+        if not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+
+def _check_grad_inputs(s, g, stats):
+    rows = s.shape[0]
+    for what, x, shape in (("g", g, (rows,)), ("stats", stats, (rows, N_STATS))):
+        if x.device != s.device or x.dtype != torch.float32 \
+                or x.shape != shape or not x.is_contiguous():
+            raise ValueError(f"{what} must be a contiguous float32 {shape} "
+                             f"tensor on {s.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+
+
 def kd_stats_fwd(labels, s, t, b, tau):
     """Per-row stats (rows, 11) f32 of student ``s``, teacher ``t`` and
     buffer ``b`` logits (rows, V), f32 or bf16 of one dtype, ``b`` None for
@@ -101,13 +146,8 @@ def kd_grad_bwd(labels, g, stats, s, t, b, tau, mean_scale):
     ``stats`` and the per-row cotangent ``g`` (rows,) f32, scaled by
     ``mean_scale``.  Every launch adds one to ``kd_grad_bwd.launches``."""
     _check(labels, s, t, b, "kd_grad_bwd")
+    _check_grad_inputs(s, g, stats)
     rows, v = s.shape
-    for what, x, shape in (("g", g, (rows,)), ("stats", stats, (rows, N_STATS))):
-        if x.device != s.device or x.dtype != torch.float32 \
-                or x.shape != shape or not x.is_contiguous():
-            raise ValueError(f"{what} must be a contiguous float32 {shape} "
-                             f"tensor on {s.device}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
     ds = torch.empty_like(s)
     err = _library().kd_grad_bwd(
         labels.data_ptr(), g.data_ptr(), stats.data_ptr(), s.data_ptr(),
@@ -120,8 +160,54 @@ def kd_grad_bwd(labels, g, stats, s, t, b, tau, mean_scale):
     return ds
 
 
+def kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau):
+    """The stats of :func:`kd_stats_fwd` with the teacher given as a
+    payload: ``codes`` (rows, V) int8, ``scale`` and ``zero`` (rows,) f32,
+    teacher = codes * scale[:, None] + zero[:, None], dequantized in the
+    kernel.  Every launch adds one to ``kd_quant_stats_fwd.launches``."""
+    _check(labels, s, None, b, "kd_quant_stats_fwd")
+    _check_payload(s, codes, scale, zero)
+    rows, v = s.shape
+    stats = torch.empty((rows, N_STATS), dtype=torch.float32, device=s.device)
+    err = _library().kd_quant_stats_fwd(
+        labels.data_ptr(), s.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+        zero.data_ptr(), b.data_ptr() if b is not None else None,
+        stats.data_ptr(), rows, v, 1.0 / float(tau), _DTYPES[s.dtype],
+        torch.cuda.current_stream(s.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"kd_quant_stats_fwd launch failed: CUDA error "
+                           f"{err}")
+    kd_quant_stats_fwd.launches += 1
+    return stats
+
+
+def kd_quant_grad_bwd(labels, g, stats, s, codes, scale, zero, b, tau,
+                      mean_scale):
+    """The student gradient of :func:`kd_grad_bwd` with the teacher given
+    as in :func:`kd_quant_stats_fwd`.  Every launch adds one to
+    ``kd_quant_grad_bwd.launches``."""
+    _check(labels, s, None, b, "kd_quant_grad_bwd")
+    _check_payload(s, codes, scale, zero)
+    _check_grad_inputs(s, g, stats)
+    rows, v = s.shape
+    ds = torch.empty_like(s)
+    err = _library().kd_quant_grad_bwd(
+        labels.data_ptr(), g.data_ptr(), stats.data_ptr(), s.data_ptr(),
+        codes.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+        b.data_ptr() if b is not None else None, ds.data_ptr(), rows, v,
+        float(tau), 1.0 / float(tau), float(mean_scale), _DTYPES[s.dtype],
+        torch.cuda.current_stream(s.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"kd_quant_grad_bwd launch failed: CUDA error "
+                           f"{err}")
+    kd_quant_grad_bwd.launches += 1
+    return ds
+
+
 kd_stats_fwd.launches = 0
 kd_grad_bwd.launches = 0
+kd_quant_stats_fwd.launches = 0
+kd_quant_grad_bwd.launches = 0
 
 
 def assemble_loss(stats, tau, with_buffer):

@@ -74,3 +74,77 @@ def kd_loss(labels, student_logits, teacher_logits, buffer_logits=None,
         torch._assert_async(((labels >= 0) & (labels < v)).all(),
                             f"kd_loss: a label is outside [0, {v})")
     return _KDLoss.apply(labels, s, t, b, float(tau))
+
+
+# -- the dequant-fused KD loss: the teacher arrives as a transport payload ---
+
+
+def kd_quant_stats(labels, s, codes, scale, zero, b, tau):
+    """The dequant-fused loss's forward stats (rows, 11):
+    ``kd_quant_stats_fwd`` on a CUDA tensor, ``kd_quant_stats_ref`` on a CPU
+    one."""
+    if s.device.type == "cpu":
+        return _ref.kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau)
+    return _kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau)
+
+
+def kd_quant_grad(labels, g, stats, s, codes, scale, zero, b, tau,
+                  mean_scale):
+    """The dequant-fused loss's student gradient: ``kd_quant_grad_bwd`` on a
+    CUDA tensor, ``kd_quant_grad_ref`` on a CPU one."""
+    if s.device.type == "cpu":
+        return _ref.kd_quant_grad_ref(labels, g, stats, s, codes, scale, zero,
+                                      b, tau, mean_scale)
+    return _kd.kd_quant_grad_bwd(labels, g, stats, s, codes, scale, zero, b,
+                                 tau, mean_scale)
+
+
+class _KDLossQuant(torch.autograd.Function):
+    """:class:`_KDLoss` with the teacher given as codes, scale and zero.
+    Codes, scale, zero and buffer are frozen: they get no gradient."""
+
+    @staticmethod
+    def forward(ctx, labels, s, codes, scale, zero, b, tau):
+        stats = kd_quant_stats(labels, s, codes, scale, zero, b, tau)
+        ctx.save_for_backward(labels, stats, s, codes, scale, zero, b)
+        ctx.tau = tau
+        return torch.mean(_kd.assemble_loss(stats, tau, b is not None))
+
+    @staticmethod
+    def backward(ctx, g):
+        labels, stats, s, codes, scale, zero, b = ctx.saved_tensors
+        rows = s.shape[0]
+        gv = g.float().expand(rows).contiguous()
+        ds = kd_quant_grad(labels, gv, stats, s, codes, scale, zero, b,
+                           ctx.tau, 1.0 / rows)
+        return None, ds, None, None, None, None, None
+
+
+def kd_loss_quant(labels, student_logits, codes, scale, zero,
+                  buffer_logits=None, tau=2.0):
+    """Mean buffered-KD loss with the teacher given as a per-row affine
+    payload, ``teacher = codes * scale[:, None] + zero[:, None]`` (int8
+    codes; the int4 codec unpacks its [-8, 7] grid into this container per
+    batch before the call), through the kernel pair ``kd_quant_stats_fwd``
+    / ``kd_quant_grad_bwd``; differentiable w.r.t. the student logits only.
+    labels (R,) integers in [0, V); student and buffer (R, V) of one dtype;
+    codes (R, V); scale, zero (R,).  On a CUDA tensor the kernels dequantize
+    in registers, so no f32 (R, V) teacher is made, and the label range is
+    asserted on the device as in :func:`kd_loss`.
+
+    The JAX package pads to its kernel's 128-lane tile (codes with 0) and
+    masks the pad columns by index against the true vocabulary; these
+    kernels read exactly V columns, so the codes go in unpadded and the
+    value on the true columns is the same without either step."""
+    s = student_logits.contiguous()
+    codes = codes.contiguous()
+    scale = scale.detach().contiguous()
+    zero = zero.detach().contiguous()
+    b = (buffer_logits.detach().contiguous()
+         if buffer_logits is not None else None)
+    labels = labels.long().contiguous()
+    if s.device.type == "cuda":
+        v = s.shape[-1]
+        torch._assert_async(((labels >= 0) & (labels < v)).all(),
+                            f"kd_loss_quant: a label is outside [0, {v})")
+    return _KDLossQuant.apply(labels, s, codes, scale, zero, b, float(tau))

@@ -88,3 +88,23 @@ def kd_grad_ref(labels, g, stats, s, t, b, tau, mean_scale):
     if b is not None:
         ds = ds + tau * (p_st - torch.exp(b.float() / tau - stats[:, 6:7]))
     return ((g.float() * mean_scale)[:, None] * ds).to(s.dtype)
+
+
+def dequantize(codes, scale, zero):
+    """The teacher of a per-row affine payload: ``codes * scale + zero`` in
+    f32 (codes (rows, V) int8, scale and zero (rows,) f32)."""
+    return codes.float() * scale[:, None] + zero[:, None]
+
+
+def kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau):
+    """``kd_quant_stats_fwd`` in plain PyTorch: the stats of
+    :func:`kd_stats_ref` with the teacher dequantized from its payload."""
+    return kd_stats_ref(labels, s, dequantize(codes, scale, zero), b, tau)
+
+
+def kd_quant_grad_ref(labels, g, stats, s, codes, scale, zero, b, tau,
+                      mean_scale):
+    """``kd_quant_grad_bwd`` in plain PyTorch: :func:`kd_grad_ref` with the
+    teacher dequantized from its payload."""
+    return kd_grad_ref(labels, g, stats, s, dequantize(codes, scale, zero), b,
+                       tau, mean_scale)

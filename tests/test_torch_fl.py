@@ -414,9 +414,11 @@ def test_port_entry_points_and_unported_paths():
         with pytest.raises(RuntimeError, match="cuda"):
             aggregation.FedAvg(adapter, aggregation.FedAvgConfig(), edges,
                                test)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fl.FederatedKD(adapter, dataclasses.replace(cfg, transport="int8"),
+    with pytest.raises(ValueError, match="registered codecs"):
+        fl.FederatedKD(adapter, dataclasses.replace(cfg, transport="gzip"),
                        core, edges, test, device="cpu")
+    fl.FederatedKD(adapter, dataclasses.replace(cfg, transport="int8"),
+                   core, edges, test, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scheduler.build_scenario("async_uniform", 4)
     with pytest.raises(ValueError, match="unknown method"):

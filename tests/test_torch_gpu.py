@@ -3,11 +3,12 @@ tests/test_torch_*.py`` on a machine with a CUDA card and ``nvcc``.
 
 Every test here needs the card and skips without one.  The file imports no
 JAX (the GPU machine has none): the hand-written ``paged_decode``,
-``kd_stats_fwd`` and ``kd_grad_bwd`` kernels are held against the port's
-plain PyTorch versions (f32 within 1e-5, bf16 within 1e-2), the paged
-engine on the card against the same engine on the CPU (greedy tokens
-equal, f32 with TF32 off), and one federated round on the card against the
-same round on the CPU.
+``kd_stats_fwd``, ``kd_grad_bwd``, ``kd_quant_stats_fwd`` and
+``kd_quant_grad_bwd`` kernels are held against the port's plain PyTorch
+versions (f32 within 1e-5, bf16 within 1e-2), the paged engine on the card
+against the same engine on the CPU (greedy tokens equal, f32 with TF32
+off), and federated rounds on the card (with and without int8 uplink
+transport) against the same rounds on the CPU.
 """
 
 import os
@@ -26,6 +27,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_decode  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.serve import ServeEngine, build_stream  # noqa: E402
+from repro_torch.transport import codecs  # noqa: E402
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -281,3 +283,175 @@ def test_federated_round_on_card_matches_cpu_and_runs_the_kernels(
     assert abs(acc["cuda"] - acc["cpu"]) <= 0.02
     steps = cfg.kd_epochs * (len(core) // cfg.batch_size)
     assert launches == {"cpu": (0, 0), "cuda": (steps, steps)}
+
+
+# -- the dequant-fused KD loss kernels ---------------------------------------
+
+
+def _kdq_case(device, rows, v, dtype, buffer, bits, seed=0):
+    """Student and buffer logits of unit scale x 3 and a teacher payload:
+    the teacher's logits through the port's int8 or int4 codec (int4
+    unpacked to its int8 container, as the transport hands it over)."""
+    rng = np.random.default_rng(seed)
+    s, t, b = (torch.from_numpy(3 * rng.standard_normal((rows, v)).astype(
+        np.float32)) for _ in range(3))
+    codec = codecs.parse_codec(f"int{bits}").transform
+    p = codec.encode(t)
+    codes = codec.unpack_codes(p["codes"], v)
+    labels = torch.from_numpy(rng.integers(0, v, size=rows).astype(np.int64))
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, rows).astype(np.float32))
+    return (labels.to(device), s.to(device, dtype), codes.to(device),
+            p["scale"].to(device), p["zero"].to(device),
+            b.to(device, dtype) if buffer else None, g.to(device))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("buffer", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [100, 128, 129, 49155])
+@pytest.mark.parametrize("rows", [1, 7, 128, 513])
+def test_kd_quant_kernels_match_ref(cuda, rows, v, dtype, buffer, bits):
+    labels, s, codes, scale, zero, b, g = _kdq_case(cuda, rows, v, dtype,
+                                                    buffer, bits)
+    tau = 2.0
+    before = (kd.kd_quant_stats_fwd.launches, kd.kd_quant_grad_bwd.launches)
+    stats = kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau)
+    ds = kd.kd_quant_grad_bwd(labels, g, stats, s, codes, scale, zero, b, tau,
+                              1.0 / rows)
+    torch.cuda.synchronize()
+    assert (kd.kd_quant_stats_fwd.launches, kd.kd_quant_grad_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = ref.kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau)
+    assert stats.shape == (rows, kd.N_STATS) and stats.dtype == torch.float32
+    assert torch.isfinite(stats).all()
+    assert _rel(stats, want) <= TOL[dtype]
+    want_ds = ref.kd_quant_grad_ref(labels, g, want, s, codes, scale, zero, b,
+                                    tau, 1.0 / rows)
+    assert ds.dtype == dtype and ds.shape == s.shape
+    assert torch.isfinite(ds.float()).all()
+    assert _rel(ds, want_ds) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("buffer", [False, True])
+def test_kd_loss_quant_autograd_matches_plain(cuda, buffer):
+    labels, s, codes, scale, zero, b, _ = _kdq_case(cuda, 128, 100,
+                                                    torch.float32, buffer, 8, 1)
+    s1 = s.clone().requires_grad_()
+    loss = ops.kd_loss_quant(labels, s1, codes, scale, zero, b, 2.0)
+    loss.backward()
+    s2 = s.clone().requires_grad_()
+    want = ref.kd_loss_mean_ref(labels, s2, ref.dequantize(codes, scale, zero),
+                                b, 2.0)
+    want.backward()
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    assert _rel(s1.grad, s2.grad) <= 1e-5
+
+
+def test_kd_loss_quant_on_cuda_never_takes_the_plain_path(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken on a CUDA tensor")
+
+    for name in ("kd_quant_stats_ref", "kd_quant_grad_ref", "dequantize",
+                 "kd_stats_ref", "kd_grad_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    labels, s, codes, scale, zero, b, _ = _kdq_case(cuda, 8, 129,
+                                                    torch.float32, True, 4, 2)
+    before = (kd.kd_quant_stats_fwd.launches, kd.kd_quant_grad_bwd.launches)
+    s = s.requires_grad_()
+    ops.kd_loss_quant(labels, s, codes, scale, zero, b, 2.0).backward()
+    torch.cuda.synchronize()
+    assert (kd.kd_quant_stats_fwd.launches, kd.kd_quant_grad_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(s.grad).all()
+
+
+def test_kd_quant_kernel_wrappers_check_inputs(cuda):
+    labels, s, codes, scale, zero, b, g = _kdq_case(cuda, 8, 100,
+                                                    torch.float32, True, 8, 3)
+    stats = kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b, 2.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kd.kd_quant_stats_fwd(labels.cpu(), s.cpu(), codes.cpu(),
+                              scale.cpu(), zero.cpu(), b.cpu(), 2.0)
+    with pytest.raises(TypeError, match="int8"):
+        kd.kd_quant_stats_fwd(labels, s, codes.to(torch.uint8), scale, zero,
+                              b, 2.0)
+    with pytest.raises(TypeError, match="float32"):
+        kd.kd_quant_stats_fwd(labels, s, codes, scale.double(), zero, b, 2.0)
+    with pytest.raises(ValueError, match="rows"):
+        kd.kd_quant_stats_fwd(labels, s, codes, scale[:4].contiguous(), zero,
+                              b, 2.0)
+    with pytest.raises(ValueError, match="codes"):
+        kd.kd_quant_stats_fwd(labels, s, codes[:, :50].contiguous(), scale,
+                              zero, b, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.kd_quant_stats_fwd(labels, s, codes.t().contiguous().t(), scale,
+                              zero, b, 2.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.kd_quant_stats_fwd(labels, s, codes, torch.stack(
+            [scale, scale], 1)[:, 0], zero, b, 2.0)
+    with pytest.raises(ValueError, match="cpu"):
+        kd.kd_quant_stats_fwd(labels, s, codes.cpu(), scale, zero, b, 2.0)
+    with pytest.raises(ValueError, match="cpu"):
+        kd.kd_quant_stats_fwd(labels, s, codes, scale, zero.cpu(), b, 2.0)
+    with pytest.raises(TypeError, match="one dtype"):
+        kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b.bfloat16(),
+                              2.0)
+    with pytest.raises(ValueError, match="stats"):
+        kd.kd_quant_grad_bwd(labels, g, stats[:, :9].contiguous(), s, codes,
+                             scale, zero, b, 2.0, 0.125)
+    with pytest.raises(TypeError, match="int8"):
+        kd.kd_quant_grad_bwd(labels, g, stats, s, codes.long(), scale, zero,
+                             b, 2.0, 0.125)
+
+
+def test_int8_federated_round_on_card_matches_cpu_and_runs_the_quant_kernels(
+        cuda):
+    """One quickstart bkd round with int8 uplink transport, f32 with TF32
+    off, from one carried initial state: the round-0 payloads differ only
+    in codes on a rounding tie (teacher logits ~1e-6 apart), so the first
+    Phase-2 loss is held within 1e-5 relative with the CPU stepper given
+    the card's payload; the test accuracy within 0.02 and the uplink log
+    exactly; every Phase-2 step ran the quant pair and not the exact one."""
+    import dataclasses
+
+    from repro_torch.core.fl import FederatedKD
+    from repro_torch.examples import quickstart
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.transport.method import PAYLOAD_KEY
+
+    torch.backends.cudnn.allow_tf32 = False
+    adapter, core, edges, test = quickstart.setup()
+    init = params_to_numpy(adapter.init(torch.Generator().manual_seed(0),
+                                        "cpu"))
+    adapter = dataclasses.replace(
+        adapter, init=lambda gen, device: params_from_numpy(init, device))
+    cfg = quickstart.config("bkd", rounds=1, transport="int8")
+    counters = (kd.kd_quant_stats_fwd, kd.kd_quant_grad_bwd, kd.kd_stats_fwd,
+                kd.kd_grad_bwd)
+    first, acc, launches, logs, payload = {}, {}, {}, {}, {}
+    for device in ("cuda", "cpu"):
+        fl = FederatedKD(adapter, cfg, core, edges, test, device=device)
+        state = fl.pretrain_core(0)
+        teachers = fl.train_round_edges([state], [0], seed=cfg.seed)
+        stepper = fl.distill_stepper(state, teachers, 0, edge_ids=[0])
+        payload[device] = stepper.mstate["cache"][PAYLOAD_KEY]
+        if device == "cpu":
+            stepper.mstate["cache"][PAYLOAD_KEY] = {
+                k: v.cpu() for k, v in payload["cuda"].items()}
+        stepper.step(max_steps=1)
+        first[device] = stepper.losses[0].item()
+        before = [c.launches for c in counters]
+        fl = FederatedKD(adapter, cfg, core, edges, test, device=device)
+        _, hist = fl.run(0, log=None)
+        launches[device] = tuple(c.launches - n
+                                 for c, n in zip(counters, before))
+        acc[device] = hist[0]["test_acc"]
+        logs[device] = fl.distill_engine.uplink_log
+    codes = [payload[d]["codes"].cpu().int() for d in ("cuda", "cpu")]
+    assert (codes[0] - codes[1]).abs().max() <= 1
+    assert abs(first["cuda"] - first["cpu"]) <= 1e-5 * abs(first["cpu"])
+    assert abs(acc["cuda"] - acc["cpu"]) <= 0.02
+    assert logs["cuda"] == logs["cpu"]
+    steps = cfg.kd_epochs * (len(core) // cfg.batch_size)
+    assert launches == {"cpu": (0, 0, 0, 0),
+                        "cuda": (steps, steps, 0, 0)}

@@ -174,6 +174,20 @@ def test_port_never_imports_jax_or_the_jax_package(path):
                 f"{path.name}:{node.lineno} imports {name}")
 
 
+def test_import_scan_covers_every_port_package():
+    """The scan above reaches every subpackage of the port, the uplink
+    transport included, and the smoke script."""
+    root = REPO / "src" / "repro_torch"
+    scanned = {p.relative_to(root).parts[0] for p in _port_sources()
+               if root in p.parents}
+    packages = {p.name for p in root.iterdir()
+                if p.is_dir() and (p / "__init__.py").exists()}
+    assert {"transport", "kernels", "core", "serve"} <= packages <= scanned
+    assert {"codecs.py", "method.py", "__init__.py"} <= {
+        p.name for p in _port_sources() if root / "transport" in p.parents}
+    assert REPO / "chip_smoke.py" in _port_sources()
+
+
 def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
