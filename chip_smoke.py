@@ -49,7 +49,27 @@ together), then:
               accuracy and the round-0 payload codes;
 12. transport bench   the port's transport benchmark (``--smoke``) on the
               card: identity transport must equal no transport bit for bit;
-13. kernels   prints one JSON line per the port's kernel table.
+13. swa kernel   holds ``swa_decode`` against its plain version (f32 and
+              bf16) on the dense engine's cache (4 slots x 512 positions,
+              pos 0..511), with a window of 128, on ``--ring``'s 32-slot
+              ring at wrapped positions and on the long-context case
+              (``registry.for_shape("granite-3-2b", "long_500k")``: window
+              8,192, with a ring cache, B=1, pos 524,287), and times each
+              beside the plain
+              version, one library call (``scaled_dot_product_attention``
+              on the dense cache with a boolean mask, a yardstick the port
+              never calls) and its bytes bound;
+14. serve dense   serves phase 3's stream with Granite-3-2B at full width
+              in bf16 through the dense engine (the default), then with
+              ``--ring``'s config (window 32, ring cache), and checks that
+              every decode attention went through ``swa_decode`` (launches
+              == layers x ticks) and none through ``paged_decode``;
+15. dense parity  Granite SMOKE in f32 (TF32 off) on the dense engine on
+              the card and on the CPU from the same weights, full and ring;
+              the card's dense engine against its paged one; one hot-swap
+              to a second weight set at a fixed tick, card vs CPU: greedy
+              tokens must be equal;
+16. kernels   prints one JSON line per the port's kernel table.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -76,6 +96,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.benchmarks import fig4_main, transport_bench  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.resnet32_cifar import RESNET32  # noqa: E402
+from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core.distill_engine import DistillEngine  # noqa: E402
 from repro_torch.core.fl import FederatedKD, FLConfig, resnet_adapter  # noqa: E402
 from repro_torch.data import (Dataset, dirichlet_partition,  # noqa: E402
@@ -87,9 +108,11 @@ from repro_torch.kernels import kd_loss as kd_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pd_mod  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import swa_decode as swa_mod  # noqa: E402
 from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
 from repro_torch.launch.serve import summarize  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.nn import attention  # noqa: E402
 from repro_torch.serve import ServeEngine, build_stream  # noqa: E402
 from repro_torch.serve.paged import pages_for  # noqa: E402
 from repro_torch.transport import parse_codec  # noqa: E402
@@ -161,7 +184,7 @@ def phase_device():
     return name
 
 
-KERNEL_SOURCES = ("paged_decode", "kd_loss")
+KERNEL_SOURCES = ("paged_decode", "kd_loss", "swa_decode")
 
 
 def phase_build():
@@ -941,6 +964,245 @@ def phase_transport_bench():
     check(ok, "transport bench: a gate failed")
 
 
+# -- dense / ring / windowed decode attention and the dense engine ----------
+
+# The long-context case is Granite-3-2B at the ``long_500k`` shape, as
+# ``registry.for_shape`` gives it (sliding window 8192), with a ring cache
+# added so that the cache holds the window rather than 524,288 positions;
+# it decodes the shape's last position.
+LONG_SHAPE = SHAPES["long_500k"]
+LONG_ATTN = dataclasses.replace(
+    registry.for_shape("granite-3-2b", "long_500k"),
+    ring_cache=True).attn_cfg(local=False)
+
+# (label, B, W, window, ring, pos, copies): the dense engine's cache at the
+# serving shape with pos from 0 to W-1; a window of 128 on it; --ring's
+# 32-slot ring at wrapped positions; the long-context ring.  Copies of the
+# caches make each timed set exceed the 50 MB L2 where one layer's cache
+# would not stay there across a 40-layer tick.
+SWA_CASES = (
+    ("full", SLOTS, MAX_LEN, None, False, [0, 170, 341, 511], 16),
+    ("window 128", SLOTS, MAX_LEN, 128, False, [0, 100, 300, 511], 16),
+    ("ring 32", SLOTS, 32, 32, True, [95, 260, 1000, 33], 16),
+    (f"long ring {LONG_ATTN.window}", LONG_SHAPE.global_batch,
+     attention.cache_len(LONG_ATTN, LONG_SHAPE.seq_len), LONG_ATTN.window,
+     True, [LONG_SHAPE.seq_len - 1], 4),
+)
+
+
+def _swa_inputs(b, w, pos, dtype, seed=0, copies=1):
+    """Sets of (q, k_cache, v_cache, pos) on the card at Granite's heads:
+    N=8 KV heads, G=4 query groups, D=64."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, 8, 4, 64), generator=gen, device="cuda").to(dtype)
+    return [(q,) + tuple(torch.randn((b, w, 8, 64), generator=gen,
+                                     device="cuda").to(dtype)
+                         for _ in range(2)) + (pos_t,)
+            for _ in range(copies)]
+
+
+def _swa_valid(b, w, pos, window, ring):
+    """(B, W) bool: the slots each row attends (the reference's mask)."""
+    p = torch.tensor(pos, dtype=torch.int64, device="cuda")[:, None]
+    j = torch.arange(w, device="cuda")[None, :]
+    a = p - torch.remainder(p - j, w) if ring else j.expand(b, w)
+    valid = (a >= 0) & (a <= p)
+    if window is not None:
+        valid &= a > p - window
+    return valid
+
+
+def _swa_bound(q, valid, itemsize):
+    """Least time for one call: the K/V rows each (row, head) attends read
+    once, q and pos read, out written; f32 math at the CUDA-core peak."""
+    b, n, g, d = q.shape
+    rows = int(valid.sum())
+    bytes_ = rows * n * d * 2 * itemsize + 2 * b * n * g * d * itemsize + 4 * b
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = rows * n * g * 4 * d / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _swa_sdpa_inputs(q, kc, vc, valid):
+    """The library yardstick's inputs, built outside the timed call: q
+    (B, H, 1, D), K/V (B, H, W, D) with the KV heads repeated per group, a
+    (B, 1, 1, W) boolean mask."""
+    b, n, g, d = q.shape
+    kd = kc.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    vd = vc.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    return q.reshape(b, n * g, 1, d), kd, vd, valid[:, None, None, :]
+
+
+def phase_swa_kernel():
+    """Returns the kernel-table entry of swa_decode at the dense engine's
+    shape (launches filled in by the serve dense phase)."""
+    entry = None
+    for label, b, w, window, ring, pos, copies in SWA_CASES:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kc, vc, p = _swa_inputs(b, w, pos, dtype, seed=1)[0]
+            got = swa_mod.swa_decode(q, kc, vc, p, window=window, ring=ring)
+            torch.cuda.synchronize()
+            want = kref.swa_decode_ref(q, kc, vc, p, window=window, ring=ring)
+            check(got.dtype == dtype and got.shape == q.shape,
+                  f"swa_decode output {got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / want.float().abs().max().item()
+            check(math.isfinite(rel) and rel <= TOL[dtype],
+                  f"swa_decode {label} {dtype}: relative err {rel} > "
+                  f"{TOL[dtype]}")
+            errs[dtype] = (err, rel)
+        # Timing at the main path's type (bf16).
+        sets = _swa_inputs(b, w, pos, torch.bfloat16, seed=2, copies=copies)
+        fn = lambda *a: swa_mod.swa_decode(  # noqa: E731
+            *a, window=window, ring=ring)
+        ms = time_ms(fn, sets)
+        wrapper_ms = eager_ms(fn, sets)
+        plain_ms = time_ms(lambda *a: kref.swa_decode_ref(
+            *a, window=window, ring=ring), sets)
+        valid = _swa_valid(b, w, pos, window, ring)
+        sdpa_sets = [_swa_sdpa_inputs(*st[:3], valid) for st in sets[:2]]
+        qs, kd, vd, mask = sdpa_sets[0]
+        lib = F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask)
+        want = kref.swa_decode_ref(*sets[0], window=window, ring=ring)
+        lib_err = (lib.float() - want.reshape(lib.shape).float()).abs().max()
+        library_ms = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mm), sdpa_sets)
+        bound_ms, bound_by = _swa_bound(sets[0][0], valid, 2)
+        print(f"[swa] {label}: B={b} W={w} N=8 G=4 D=64 window={window} "
+              f"ring={ring} pos={pos} ({int(valid.sum())} valid slots): "
+              f"relative err f32 {errs[torch.float32][1]:.3g}, bf16 "
+              f"{errs[torch.bfloat16][1]:.3g} (limits 1e-5, 1e-2); bf16 "
+              f"kernel {ms:.5f} ms (eager through the wrapper "
+              f"{wrapper_ms:.5f} ms), plain {plain_ms:.5f} ms, sdpa on the "
+              f"dense cache {library_ms:.5f} ms (err {lib_err.item():.3g}), "
+              f"bound {bound_ms:.5f} ms ({bound_by}), {bound_ms / ms:.1%} of "
+              f"the bound")
+        if entry is None:
+            entry = {"name": "swa_decode", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/swa_decode.cu",
+                     "replaces": "src/repro/kernels/swa_decode.py:160",
+                     "launches": None,
+                     "max_abs_err": errs[torch.bfloat16][0], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+        del sets, sdpa_sets
+    return entry
+
+
+def _serve_dense(cfg, params, label):
+    """Phase 3's stream on the dense engine; returns swa_decode's launches
+    in the measured run (the count set to 0 just before it)."""
+    stream = lambda n: build_stream(  # noqa: E731
+        "poisson", n, vocab=cfg.vocab_size, seed=0, prompt_max=192,
+        out_max=32, shared_prefix=32)
+    engine = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                         device="cuda")
+    engine.run(stream(2))                     # warm-up: cuBLAS, allocator
+    engine.reset()
+    reqs = stream(8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged_before = pd_mod.paged_decode.launches
+    swa_mod.swa_decode.launches = 0
+    t0 = time.perf_counter()
+    finished = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = swa_mod.swa_decode.launches
+    stats = summarize(finished, wall)
+    print(f"[serve dense] {label}: {stats['requests']}/8 requests, "
+          f"{stats['tokens']} tokens in {stats['seconds']}s = "
+          f"{stats['tok_per_sec']} tok/s; TTFT p50/p99 "
+          f"{stats['ttft_p50_ms']}/{stats['ttft_p99_ms']} ms; ITL p50/p99 "
+          f"{stats['itl_p50_ms']}/{stats['itl_p99_ms']} ms; cache "
+          f"{engine.resident_cache_bytes()} B; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; swa_decode launches "
+          f"{launches} over {engine.decode_ticks} decode ticks x "
+          f"{cfg.num_layers} layers")
+    check(len(finished) == 8, f"{label}: {len(finished)} of 8 requests served")
+    for r in finished:
+        want = min(r.max_new, MAX_LEN - len(r.prompt))
+        check(len(r.out) == want,
+              f"{label} r{r.rid}: {len(r.out)} tokens, want {want}")
+        check(all(0 <= t < cfg.vocab_size for t in r.out),
+              f"{label} r{r.rid}: token id outside the vocabulary")
+    check(launches == cfg.num_layers * engine.decode_ticks > 0,
+          f"{label}: swa_decode launched {launches} times, want "
+          f"{cfg.num_layers} x {engine.decode_ticks}")
+    check(pd_mod.paged_decode.launches == paged_before,
+          f"{label}: the dense engine launched paged_decode")
+    return launches
+
+
+def phase_serve_dense():
+    """Granite-3-2B at full width in bf16 on the dense engine, full caches
+    and then --ring's config: returns swa_decode's launches in the
+    full-cache run (the main path)."""
+    cfg = registry.get_config("granite-3-2b")
+    params = Transformer.init(cfg, 0, device="cuda")
+    launches = _serve_dense(cfg, params, "full cache")
+    ring = dataclasses.replace(cfg, sliding_window=32, ring_cache=True)
+    _serve_dense(ring, params, "ring cache (window 32)")
+    return launches
+
+
+def _serve_swap(cfg, weights, reqs, device, swap_at=None, **kw):
+    """Serve ``reqs``; with ``swap_at``, hot-swap to ``weights[1]`` before
+    that tick.  Returns ({rid: tokens}, swap log)."""
+    engine = ServeEngine(cfg, params_from_numpy(weights[0], device),
+                         device=device, **kw)
+    engine.begin(reqs)
+    finished = []
+    while engine.pending():
+        if swap_at is not None and engine.ticks == swap_at:
+            engine.hot_swap(params_from_numpy(weights[1], "cpu"))
+        finished += engine.tick()
+    return {r.rid: r.out for r in finished}, engine.swap_log
+
+
+def phase_dense_parity():
+    """Granite SMOKE in f32, TF32 off, on the dense engine: card vs CPU
+    (full and ring caches), the card's dense vs paged engine, and a hot-swap
+    at a fixed tick card vs CPU.  Greedy tokens must be equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = registry.get_smoke_config("granite-3-2b")
+    weights = [params_to_numpy(Transformer.init(cfg, s, device="cpu"))
+               for s in (1, 2)]
+    stream = lambda: build_stream(  # noqa: E731
+        "bursty", 10, vocab=cfg.vocab_size, seed=3, prompt_max=40,
+        out_max=16, shared_prefix=16)
+    kw = dict(slots=3, max_len=96)
+    ring = dataclasses.replace(cfg, sliding_window=32, ring_cache=True)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        runs["full", device] = _serve_swap(cfg, weights, stream(), device, **kw)
+        runs["ring", device] = _serve_swap(ring, weights, stream(), device,
+                                           **kw)
+        runs["swap", device] = _serve_swap(cfg, weights, stream(), device,
+                                           swap_at=6, **kw)
+    runs["paged", "cuda"] = _serve_swap(cfg, weights, stream(), "cuda",
+                                        paged=True, page_size=8, **kw)
+    n_tok = sum(len(o) for o in runs["full", "cpu"][0].values())
+    for name, a, b in (("full card vs cpu", ("full", "cuda"), ("full", "cpu")),
+                       ("ring card vs cpu", ("ring", "cuda"), ("ring", "cpu")),
+                       ("dense vs paged on the card", ("full", "cuda"),
+                        ("paged", "cuda")),
+                       ("hot-swap at tick 6 card vs cpu", ("swap", "cuda"),
+                        ("swap", "cpu"))):
+        same = sum(runs[a][0][r] == runs[b][0][r] for r in runs[b][0])
+        print(f"[dense parity] {cfg.name} f32, {name}: {same}/"
+              f"{len(runs[b][0])} requests identical (swap logs "
+              f"{runs[a][1]} / {runs[b][1]})")
+        check(runs[a] == runs[b], f"dense parity: {name} differ")
+    check(runs["swap", "cpu"][1] == [6], "dense parity: the swap never fired")
+    check(runs["swap", "cpu"][0] != runs["full", "cpu"][0],
+          "dense parity: the swap changed no token")
+    print(f"[dense parity] {n_tok} tokens a run")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -973,7 +1235,11 @@ def main():
         e["launches"] = n
     phase_fl_transport_parity()
     phase_transport_bench()
-    print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries}))
+    swa_entry = phase_swa_kernel()
+    swa_entry["launches"] = phase_serve_dense()
+    phase_dense_parity()
+    print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries
+                      + [swa_entry]}))
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

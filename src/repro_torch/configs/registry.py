@@ -7,7 +7,10 @@ yet rather than that it does not exist.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
+
+from repro_torch.configs.shapes import SHAPES
 
 ARCHS = {
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
@@ -20,6 +23,10 @@ NOT_PORTED = (
     "qwen3-14b", "nemotron-4-340b", "qwen1.5-4b", "kimi-k2-1t-a32b",
     "phi3.5-moe-42b-a6.6b",
 )
+
+
+SUBQUADRATIC = {"recurrentgemma-9b", "mamba2-370m"}
+LONG_WINDOW = 8192  # sliding-window variant for full-attention archs at 500k
 
 
 def list_archs():
@@ -45,3 +52,27 @@ def get_smoke_config(arch):
 
 def get_family(arch):
     return _module(arch).FAMILY
+
+
+def skip_reason(arch, shape_name):
+    """Return a skip string for invalid (arch x shape) combos, else None."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    if cfg.is_encoder and shape.kind == "decode":
+        return "encoder-only: no decode step (DESIGN.md shape-coverage policy)"
+    return None
+
+
+def for_shape(arch, shape_name):
+    """Config adjusted for the given input shape: at ``long_500k`` a
+    full-attention arch becomes its sliding-window variant (window 8192,
+    the window ``swa_decode`` serves).  Raises ValueError for skipped
+    combos."""
+    reason = skip_reason(arch, shape_name)
+    if reason:
+        raise ValueError(f"{arch} x {shape_name} skipped: {reason}")
+    cfg = get_config(arch)
+    if shape_name == "long_500k" and arch not in SUBQUADRATIC:
+        cfg = dataclasses.replace(cfg, sliding_window=LONG_WINDOW,
+                                  name=cfg.name + "+swa8k")
+    return cfg

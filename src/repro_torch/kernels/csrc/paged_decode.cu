@@ -242,7 +242,7 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
 // q (B,N,G,D), k_pool/v_pool (P,ps,N,D) of one dtype (f32 or bf16), pt
 // (B,PP) int32, pos (B,) int32, out (B,N,G,D) of q's dtype; all contiguous
 // on the current device, pools 16-byte aligned.  window <= 0 means no
-// window.  Needs G <= 32, D % 32 == 0, D <= 256 and one page's rows within
+// window.  Needs G <= 16, D % 32 == 0, D <= 256 and one page's rows within
 // the 48 KiB of shared memory (the wrapper checks).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int paged_decode(const void* q, const void* k_pool,

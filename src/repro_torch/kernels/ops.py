@@ -8,6 +8,7 @@ import torch
 from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.swa_decode import swa_decode
 
 
 def paged_decode_attn(q, k_pool, v_pool, pt, pos, *, window=None):
@@ -17,6 +18,19 @@ def paged_decode_attn(q, k_pool, v_pool, pt, pos, *, window=None):
     if q.device.type == "cpu":
         return _ref.paged_decode_ref(q, k_pool, v_pool, pt, pos, window=window)
     return paged_decode(q, k_pool, v_pool, pt, pos, window=window)
+
+
+def swa_decode_attn(q, k_cache, v_cache, pos, *, window=None, ring=False):
+    """Decode attention over a dense (ring) cache (the dense ServeEngine's
+    tick hot spot).  q: (B, N, G, D); k/v_cache: (B, W, N, D); pos: a
+    scalar or (B,) int, broadcast to (B,) int32."""
+    b = q.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device).expand(b)
+    if q.device.type == "cpu":
+        return _ref.swa_decode_ref(q, k_cache, v_cache, pos, window=window,
+                                   ring=ring)
+    return swa_decode(q, k_cache, v_cache, pos.contiguous(), window=window,
+                      ring=ring)
 
 
 def kd_stats(labels, s, t, b, tau):

@@ -59,8 +59,10 @@ def _check(q, k_pool, v_pool, pt, pos, window):
     if pt.dim() != 2 or pt.shape[0] != b or pos.shape != (b,):
         raise ValueError(f"pt {tuple(pt.shape)} / pos {tuple(pos.shape)} do "
                          f"not match batch {b}")
-    if not 1 <= g <= 32 or d % 32 or d > 256:
-        raise ValueError(f"kernel needs 1 <= G <= 32 and D a multiple of 32 "
+    # At most 16 warps a block: at the kernel's register count a block of
+    # 32 warps does not fit an SM, and its launch fails.
+    if not 1 <= g <= 16 or d % 32 or d > 256:
+        raise ValueError(f"kernel needs 1 <= G <= 16 and D a multiple of 32 "
                          f"up to 256, got G={g}, D={d}")
     ps, pp = k_pool.shape[1], pt.shape[1]
     smem = 4 * (2 * ps * (d + 1) + g * d + g * ps + pp)

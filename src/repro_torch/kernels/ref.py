@@ -30,6 +30,28 @@ def paged_decode_ref(q, k_pool, v_pool, pt, pos, window=None):
     return torch.einsum("bngw,bwnd->bngd", p, vc.float()).to(q.dtype)
 
 
+def swa_decode_ref(q, k_cache, v_cache, pos, window=None, ring=False):
+    """Decode attention of one token per row over a dense (ring) cache.
+    q: (B, N, G, D); caches (B, W, N, D); pos: scalar or (B,) int.  With
+    ``ring`` slot j holds absolute position a_j = pos - ((pos - j) mod W),
+    else a_j = j; a slot is valid when 0 <= a_j <= pos (and a_j > pos -
+    window).  Scores, softmax and the weighted sum in f32, masked to
+    -1e30; returned in q's dtype."""
+    b, n, g, d = q.shape
+    w = k_cache.shape[1]
+    p_col = torch.as_tensor(pos, device=q.device).long().expand(b)[:, None]
+    j = torch.arange(w, device=q.device)[None, :]
+    a = p_col - torch.remainder(p_col - j, w) if ring else j.expand(b, w)
+    valid = (a >= 0) & (a <= p_col)
+    if window is not None:
+        valid = valid & (a > p_col - window)
+    s = torch.einsum("bngd,bwnd->bngw", q.float(),
+                     k_cache.float()) / math.sqrt(d)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bngw,bwnd->bngd", p, v_cache.float()).to(q.dtype)
+
+
 def kd_loss_ref(labels, s, t, b, tau):
     """Per-row buffered-KD loss: CE + tau^2 KL(t||s) [+ tau^2 KL(b||s)].
     s, t, b: (rows, V) logits (b may be None); labels (rows,) int."""

@@ -1,9 +1,12 @@
 """Serving CLI of the port: builds a named request stream, serves it through
-the paged :class:`~repro_torch.serve.engine.ServeEngine` and prints
-throughput, latency percentiles and prefix-cache counters.
+the :class:`~repro_torch.serve.engine.ServeEngine` (dense caches by default,
+a ring-buffer window with ``--ring``, the block-paged pool with
+``--paged``) and prints throughput, latency percentiles and, when paged,
+prefix-cache counters.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
-        --stream poisson --requests 8 --slots 4 [--full] [--device cpu]
+        --stream poisson --requests 8 --slots 4 [--ring | --paged] [--full] \
+        [--device cpu]
 
 Weights are random, drawn from ``--seed`` on the device.
 """
@@ -11,6 +14,7 @@ Weights are random, drawn from ``--seed`` on the device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -59,23 +63,38 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=96)
     ap.add_argument("--prompt-max", type=int, default=48)
     ap.add_argument("--out-max", type=int, default=12)
+    ap.add_argument("--ring", action="store_true",
+                    help="ring-buffer windowed cache (long-context serving)")
+    ap.add_argument("--paged", action="store_true",
+                    help="block-paged KV cache with prefix sharing")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per physical page")
+                    help="tokens per physical page (with --paged)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many identical system-prompt tokens "
                          "to every request (exercises the prefix cache)")
     ap.add_argument("--sample", default="greedy", choices=("greedy", "topk"))
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=40)
+    ap.add_argument("--legacy", action="store_true",
+                    help="the frozen pre-refactor loop (not ported yet)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
 
+    if args.legacy:
+        raise NotImplementedError(
+            "--legacy (serve/legacy.py) is not ported yet (ROADMAP.md queue "
+            "1, slice 9: the legacy loop)")
     device = resolve_device(args.device)
     cfg = (registry.get_config(args.arch) if args.full
            else registry.get_smoke_config(args.arch))
+    if args.ring:
+        cfg = dataclasses.replace(cfg, sliding_window=32, ring_cache=True)
     params = Transformer.init(cfg, args.seed, device=device)
+    if args.ring and args.paged:
+        raise SystemExit("--ring and --paged are exclusive (the page pool "
+                         "replaces the ring buffer)")
     reqs = build_stream(args.stream, args.requests, vocab=cfg.vocab_size,
                         seed=args.seed,
                         prompt_max=min(args.prompt_max, args.max_len - 2
@@ -85,17 +104,20 @@ def main(argv=None):
     engine = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
                          sample=args.sample, temperature=args.temperature,
                          top_k=args.top_k if args.sample == "topk" else 0,
-                         seed=args.seed, paged=True, page_size=args.page_size,
-                         device=device)
+                         seed=args.seed, paged=args.paged,
+                         page_size=args.page_size, device=device)
     t0 = time.perf_counter()
     finished = engine.run(reqs, log=print)
     stats = summarize(finished, time.perf_counter() - t0)
+    cache = "paged" if args.paged else ("ring" if args.ring else "full")
     print(f"served {stats['requests']}/{args.requests} requests "
-          f"({args.stream} stream, engine[{args.sample}, paged cache] on "
+          f"({args.stream} stream, engine[{args.sample}, {cache} cache] on "
           f"{device}): {stats['tokens']} tokens in {stats['seconds']}s = "
           f"{stats['tok_per_sec']} tok/s; "
           f"TTFT p50/p99 {stats['ttft_p50_ms']}/{stats['ttft_p99_ms']} ms; "
           f"ITL p50/p99 {stats['itl_p50_ms']}/{stats['itl_p99_ms']} ms")
+    if not args.paged:
+        return finished
     ps = engine.prefix_stats()
     print(f"paged: {ps['hits']} prefix hits / {ps['misses']} misses, "
           f"peak {ps['peak_pages']} pages "

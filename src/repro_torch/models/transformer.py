@@ -1,5 +1,6 @@
-"""Decoder LM over stacked per-layer parameters: the block-paged serving
-path of ``repro.models.transformer``.
+"""Decoder LM over stacked per-layer parameters: the serving paths (dense
+or ring KV caches, and the block-paged pool) of
+``repro.models.transformer``.
 
 Parameters are nested dicts of tensors with the JAX package's key names,
 shapes and layouts: sub-blocks of the ``block_pattern`` live under
@@ -25,6 +26,7 @@ NEG_INF = -1e30
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _NOT_PORTED = "not ported yet (ROADMAP.md queue 1)"
+_RECURRENT = "not ported yet (ROADMAP.md queue 1, slice 8: recurrent archs)"
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -34,7 +36,7 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The fields of the JAX ``LMConfig`` that the attention-only serving
-    path reads."""
+    paths read."""
 
     name: str
     num_layers: int
@@ -91,7 +93,8 @@ class LMConfig:
             d_model=self.d_model, num_heads=self.num_heads,
             kv_heads=self.kv_heads, head_dim=self.hd, causal=self.causal,
             window=window, qk_norm=self.qk_norm, qkv_bias=self.qkv_bias,
-            rope=self.rope, rope_theta=self.rope_theta, q_chunk=self.q_chunk)
+            rope=self.rope, rope_theta=self.rope_theta, q_chunk=self.q_chunk,
+            ring_cache=self.ring_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +125,30 @@ def _mlp_apply(cfg: LMConfig, p, x):
     if cfg.mlp == "moe":
         raise NotImplementedError(f"MoE is {_NOT_PORTED}")
     return _dense_mlp_apply(cfg, p, x), 0.0
+
+
+def _subblock_cache_init(cfg: LMConfig, kind: str, batch, max_len, device,
+                         stack=None):
+    if kind in ("attn", "local"):
+        return attn_lib.init_cache(cfg.attn_cfg(kind == "local"), batch,
+                                   max_len, dtype=cfg.adt, device=device,
+                                   stack=stack)
+    if kind in ("ssd", "rglru"):
+        raise NotImplementedError(f"the {kind!r} decode cache is {_RECURRENT}")
+    raise ValueError(kind)
+
+
+def _subblock_decode(cfg: LMConfig, kind: str, p, cache, x, pos, positions):
+    if kind not in ("attn", "local"):
+        raise NotImplementedError(f"the {kind!r} decode step is {_RECURRENT}")
+    h = _norm_apply(cfg, p["ln1"], x)
+    y, cache = attn_lib.decode_step(p["mixer"], cfg.attn_cfg(kind == "local"),
+                                    cache, h, pos, positions)
+    x = x + y
+    if cfg.mlp != "none":
+        m, _ = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+        x = x + m
+    return x, cache
 
 
 def _assert_pageable(cfg: LMConfig):
@@ -158,8 +185,8 @@ def _index(tree, i):
 
 
 def _sub_blocks(cfg: LMConfig, params, caches):
-    """(kind, layer params, layer pool) in layer order: stacked super-blocks
-    first, then the tail."""
+    """(kind, layer params, layer cache or pool) in layer order: stacked
+    super-blocks first, then the tail."""
     pat = cfg.block_pattern
     for layer in range(cfg.n_super):
         for i, kind in enumerate(pat):
@@ -263,6 +290,88 @@ class Transformer:
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = NEG_INF
         return logits
+
+    # -- dense decode path (the dense ServeEngine) ---------------------------
+
+    @staticmethod
+    def init_cache(cfg: LMConfig, batch, max_len, *, device):
+        """Zeroed dense caches in the tree shape of the params: (layers, B,
+        W, N, D) K and V under "blocks", (B, W, N, D) for tails, W the
+        cache length (``max_len``, or the window for a ring cache)."""
+        caches = {}
+        if cfg.n_super > 0:
+            caches["blocks"] = {
+                f"b{i}": _subblock_cache_init(cfg, kind, batch, max_len,
+                                              device, stack=cfg.n_super)
+                for i, kind in enumerate(cfg.block_pattern)}
+        for j in range(cfg.n_tail):
+            kind = cfg.block_pattern[j % len(cfg.block_pattern)]
+            caches[f"tail{j}"] = _subblock_cache_init(cfg, kind, batch,
+                                                      max_len, device)
+        return caches
+
+    @staticmethod
+    def decode_step(cfg: LMConfig, params, caches, token, pos, positions=None):
+        """One token per row against the dense caches (updated in place).
+        token: (B, 1) int; pos: a scalar or (B,) int32, every row at its own
+        position; positions: RoPE positions (B, 1), pos by default."""
+        x, _ = Transformer._embed_inputs(cfg, params, {"tokens": token})
+        pos = torch.as_tensor(pos, dtype=torch.int32,
+                              device=x.device).expand(x.shape[0])
+        if positions is None:
+            positions = pos[:, None]
+        for kind, p, cache in _sub_blocks(cfg, params, caches):
+            x, _ = _subblock_decode(cfg, kind, p, cache, x, pos, positions)
+        return Transformer._unembed(cfg, params, x), caches
+
+    @staticmethod
+    def prefill(cfg: LMConfig, params, batch, max_len, lengths=None):
+        """Run the prompt and build fresh dense caches (the tree of
+        :meth:`init_cache`); returns (logits, caches).
+
+        ``lengths`` (B,) marks right-padded prompts (the engine's bucketed
+        prefill): attention caches are padding-safe (ring caches are packed
+        length-aware, full-cache pad K/V is never attended), recurrent
+        state would not be, so padded prefill is rejected for ssd/rglru
+        blocks as in the JAX package."""
+        if lengths is not None and any(k != "attn" and k != "local"
+                                       for k in cfg.block_pattern):
+            raise ValueError(
+                "padded (bucketed) prefill needs length-aware recurrent "
+                f"state handling; block_pattern {cfg.block_pattern} has "
+                "recurrent sub-blocks — prefill each prompt at its exact "
+                "length instead (lengths=None)")
+        x, positions = Transformer._embed_inputs(cfg, params, batch)
+
+        def block_prefill(p, kind, x):
+            if kind not in ("attn", "local"):
+                raise NotImplementedError(
+                    f"the {kind!r} prefill is {_RECURRENT}")
+            h = _norm_apply(cfg, p["ln1"], x)
+            y, c = attn_lib.prefill(p["mixer"], cfg.attn_cfg(kind == "local"),
+                                    h, positions, max_len, lengths=lengths)
+            x = x + y
+            if cfg.mlp != "none":
+                m, _ = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+                x = x + m
+            return x, {k: v.to(cfg.adt) for k, v in c.items()}
+
+        caches = {}
+        pat = cfg.block_pattern
+        if cfg.n_super > 0:
+            per_layer = {f"b{i}": [] for i in range(len(pat))}
+            for layer in range(cfg.n_super):
+                for i, kind in enumerate(pat):
+                    x, c = block_prefill(
+                        _index(params["blocks"][f"b{i}"], layer), kind, x)
+                    per_layer[f"b{i}"].append(c)
+            caches["blocks"] = {
+                b: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+                for b, cs in per_layer.items()}
+        for j in range(cfg.n_tail):
+            x, caches[f"tail{j}"] = block_prefill(
+                params[f"tail{j}"], pat[j % len(pat)], x)
+        return Transformer._unembed(cfg, params, x), caches
 
     # -- block-paged decode path (the paged ServeEngine) ---------------------
 

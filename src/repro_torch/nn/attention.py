@@ -1,10 +1,12 @@
-"""GQA attention with RoPE, qk-norm and sliding windows over a block-paged
-KV pool (the paged-serving half of ``repro.nn.attention``).
+"""GQA attention with RoPE, qk-norm and sliding windows over a dense (full
+or ring) KV cache or a block-paged KV pool: the serving half of
+``repro.nn.attention``.
 
 Layouts follow the JAX package: ``wq`` (d, H, D), ``wk``/``wv`` (d, N, D),
-``wo`` (H, D, d); pools (P, page_size, N, D).  Pools are updated in place
-(the JAX functions return new arrays): a pool is the largest tensor a layer
-owns, and every caller replaces its pool with the returned one anyway.
+``wo`` (H, D, d); dense caches (B, W, N, D); pools (P, page_size, N, D).
+Decode steps update caches and pools in place (the JAX functions return new
+arrays): they are the largest tensors a layer owns, and every caller
+replaces its cache with the returned one anyway.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ class AttnConfig:
     rope: str = "rope"                    # "rope" | "none" (M-RoPE not ported)
     rope_theta: float = 10000.0
     q_chunk: int = 512
+    ring_cache: bool = False              # windowed decode: cache only the
+                                          # last `window` K/V in a ring buffer
 
     @property
     def q_groups(self):
@@ -102,6 +106,105 @@ def attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
         outs.append(_attend_chunk(qg[:, start:start + chunk], k, v, q_pos,
                                   k_pos, cfg))
     return torch.cat(outs, dim=1).reshape(b, s, h, d)
+
+
+def cache_len(cfg: AttnConfig, max_len):
+    if cfg.ring_cache and cfg.window is not None:
+        return min(max_len, cfg.window)
+    return max_len
+
+
+def init_cache(cfg: AttnConfig, batch, max_len, *, dtype, device, stack=None):
+    """A zeroed dense cache (B, cache_len, N, D) for K and V (a leading
+    ``stack`` axis for stacked layers)."""
+    shape = (batch, cache_len(cfg, max_len), cfg.kv_heads, cfg.head_dim)
+    if stack is not None:
+        shape = (stack, *shape)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill(params, cfg: AttnConfig, x, positions, max_len, lengths=None):
+    """Forward over a prompt; returns (output, cache).  Full caches are
+    length ``max_len``; ring caches keep only the last ``window`` positions,
+    stored at slot (absolute position % window).
+
+    ``lengths`` (B,) marks right-padded prompts (row b's real tokens are
+    x[b, :lengths[b]]).  Full caches need nothing more: pad K/V past a row's
+    length sit at positions its decode mask admits only after they are
+    overwritten.  Ring caches do: the roll packing keys slots off the padded
+    length, so with ``lengths`` each row is gathered instead: slot j holds
+    the K/V of absolute position a_j = (len-1) - ((len-1 - j) mod W) when
+    a_j >= 0, else zeros (the roll packing for unpadded input)."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = attend_full(q, k, v, cfg)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    s_len = k.shape[1]
+    clen = cache_len(cfg, max_len)
+    if clen < max_len and lengths is not None:
+        w = clen
+        j = torch.arange(w, device=x.device)
+        last = lengths.long()[:, None] - 1                          # (B, 1)
+        a = last - torch.remainder(last - j[None, :], w)            # (B, w)
+        valid = (a >= 0)[..., None, None]
+        idx = a.clamp(min=0)[..., None, None].expand(
+            -1, -1, k.shape[2], k.shape[3])
+
+        def gather(t):
+            return torch.where(valid, torch.gather(t, 1, idx),
+                               torch.zeros((), dtype=t.dtype, device=t.device))
+
+        cache = {"k": gather(k), "v": gather(v)}
+    elif clen < max_len:  # ring: the last `window` tokens, ring-ordered
+        w = clen
+        if s_len >= w:
+            k_last, v_last = k[:, s_len - w:], v[:, s_len - w:]
+            shift = (s_len - w) % w
+        else:
+            pad = (0, 0, 0, 0, 0, w - s_len)
+            k_last = torch.nn.functional.pad(k, pad)
+            v_last = torch.nn.functional.pad(v, pad)
+            shift = 0
+        cache = {"k": torch.roll(k_last, shift, dims=1),
+                 "v": torch.roll(v_last, shift, dims=1)}
+    else:
+        pad = (0, 0, 0, 0, 0, max_len - s_len)
+        cache = {"k": torch.nn.functional.pad(k, pad),
+                 "v": torch.nn.functional.pad(v, pad)}
+    return y, cache
+
+
+def decode_step(params, cfg: AttnConfig, cache, x, pos, positions=None):
+    """One token per row against a dense cache (updated in place).  x:
+    (B, 1, D); pos: a scalar or (B,) int (the serving engine's per-slot
+    path: every row writes its cache and attends at its own position);
+    positions: RoPE positions (B, 1), pos by default.  With a ring cache
+    (``ring_cache`` and a window no shorter than the cache) row b writes
+    slot pos % W.
+
+    The attention runs through :func:`repro_torch.kernels.ops.swa_decode_attn`
+    (the ``swa_decode`` kernel on the card), which keeps f32 from QK through
+    PV.  The JAX function computes it inline with scores from a ``q.dtype``
+    product and probabilities cast back to ``q.dtype``: equal in f32, apart
+    by bf16 rounding in bf16 (a deliberate deviation, ROADMAP queue 3)."""
+    b = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
+    if positions is None:
+        positions = pos[:, None]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    t = cache["k"].shape[1]
+    ring = cfg.ring_cache and cfg.window is not None and t <= cfg.window
+    slot = (pos % t if ring else pos).long()
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    qg = q[:, 0].reshape(b, cfg.kv_heads, cfg.q_groups,
+                         cfg.head_dim).contiguous()
+    out = ops.swa_decode_attn(qg, cache["k"], cache["v"], pos,
+                              window=cfg.window, ring=ring)
+    out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return y, cache
 
 
 def init_paged_cache(cfg: AttnConfig, num_pages, page_size, *, dtype, device,

@@ -1,8 +1,9 @@
 """Serving subsystem of the port.
 
-``engine``   ServeEngine over the block-paged KV pool (``paged=True``):
-             device-resident slot state, one host sync per tick, bucketed
-             batched prefill, device-side sampling.
+``engine``   ServeEngine over dense (full or ring) KV caches, the default,
+             or the block-paged KV pool (``paged=True``): device-resident
+             slot state, one host sync per tick, bucketed batched prefill,
+             device-side sampling, params hot-swap.
 ``streams``  Named arrival-process scenarios and the Request record (a copy
              of the JAX package's module).
 ``paged``    Page allocator with refcounted prefix sharing (a copy of the
@@ -10,7 +11,8 @@
 """
 
 from repro_torch.serve.engine import (ServeEngine, bucket_length,
-                                      make_paged_admit_step,
+                                      make_admit_step, make_decode_tick,
+                                      make_init_state, make_paged_admit_step,
                                       make_paged_decode_tick, make_sampler)
 from repro_torch.serve.paged import (Admission, PageAllocator, TRASH_PAGE,
                                      pages_for)
@@ -19,6 +21,7 @@ from repro_torch.serve.streams import (STREAMS, Request, build_stream,
 
 __all__ = [
     "ServeEngine", "Request", "STREAMS", "build_stream", "bucket_length",
+    "make_admit_step", "make_decode_tick", "make_init_state",
     "make_paged_admit_step", "make_paged_decode_tick", "make_sampler",
     "with_shared_prefix", "Admission", "PageAllocator", "TRASH_PAGE",
     "pages_for",

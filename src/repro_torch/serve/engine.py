@@ -1,17 +1,20 @@
-"""Serving engine of the port: slot-based continuous batching over the
-block-paged KV pool, with bucketed batched prefill.
+"""Serving engine of the port: slot-based continuous batching over dense
+(full or ring) per-slot KV caches, the default, or the block-paged KV pool
+(``paged=True``), with bucketed batched prefill and params hot-swap.
 
-The counterpart of ``repro.serve.engine.ServeEngine(paged=True)``.  Per-slot
-state (current token, position, budget, active flag, page table, page
+The counterpart of ``repro.serve.engine.ServeEngine``.  Per-slot state
+(current token, position, budget, active flag, caches or page table and
 pools) lives on the engine's device; the host groups arrivals into
 admissions and pulls ``(emitted, done)`` once per tick.  Where JAX jits an
 admission step and a decode tick, the port runs the same functions eagerly.
 
-Slot lifecycle: free -> (prefill writes pages/token/pos/budget, first token
+Slot lifecycle: free -> (prefill writes cache/token/pos/budget, first token
 from the prefill's own last-real-position logits) -> active decode ticks ->
 done (budget exhausted or ``pos == max_len - 1``) -> free.  Inactive slots
-ride along in the decode batch at a stale position; their K/V writes are
-redirected to the trash page and their outputs discarded.
+ride along in the decode batch at a stale position and their outputs are
+discarded; on the dense engine their cache writes are junk that the next
+admission overwrites wholesale, on the paged engine they are redirected to
+the trash page.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from repro_torch import resolve_device
 from repro_torch.models.transformer import LMConfig, Transformer
 from repro_torch.serve.paged import PageAllocator, TRASH_PAGE, pages_for
 
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, slice 3: rest of serving)"
+_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, slice 6: checkpoints)"
 
 
 def make_sampler(sample: str = "greedy", temperature: float = 1.0,
@@ -58,6 +61,81 @@ def bucket_length(n: int, *, minimum: int = 8) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _merge_caches(old, new, fill):
+    """Per-slot cache replacement: rows of ``new`` where ``fill`` (S,) bool,
+    rows of ``old`` elsewhere.  The batch axis is axis 1 under the stacked
+    "blocks" subtree (leading layers axis) and axis 0 for tail blocks."""
+
+    def merge(o, n, batch_axis):
+        if isinstance(o, dict):
+            return {k: merge(o[k], n[k], batch_axis) for k in o}
+        shape = [1] * o.dim()
+        shape[batch_axis] = fill.shape[0]
+        return torch.where(fill.reshape(shape), n.to(o.dtype), o)
+
+    return {key: merge(old[key], new[key], 1 if key == "blocks" else 0)
+            for key in old}
+
+
+def make_admit_step(cfg: LMConfig, max_len: int, sampler):
+    """Bucketed batched admission on the dense engine: prefill (S, L)
+    right-padded prompts and splice the filled slots' state.  Returns the
+    new slot state, the first token per slot (from the prefill's own
+    last-real-position logits) and the slots already done at admission
+    (``max_new == 1``, or a prompt that reaches the ``max_len - 1`` edge)."""
+
+    def admit(params, caches, tokens, pos, budget, active,
+              prompts, lengths, max_news, fill, generator):
+        logits, new_caches = Transformer.prefill(
+            cfg, params, {"tokens": prompts}, max_len, lengths=lengths)
+        rows = torch.arange(prompts.shape[0], device=prompts.device)
+        last = logits[rows, (lengths - 1).clamp(min=0).long()]   # (S, V)
+        first = sampler(last, generator)                         # (S,)
+        caches = _merge_caches(caches, new_caches, fill)
+        tokens = torch.where(fill, first, tokens[:, 0])[:, None]
+        pos = torch.where(fill, lengths, pos)
+        budget = torch.where(fill, max_news - 1, budget)
+        done_now = fill & ((budget <= 0) | (pos >= max_len - 1))
+        active = (active | fill) & ~done_now
+        return tokens, caches, pos, budget, active, first, done_now
+
+    return admit
+
+
+def make_init_state(cfg: LMConfig, slots: int, max_len: int, device):
+    """Fresh dense slot state: zeroed caches and idle slots."""
+
+    def init():
+        caches = Transformer.init_cache(cfg, slots, max_len, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        tokens = torch.zeros((slots, 1), **i32)
+        pos = torch.zeros((slots,), **i32)
+        budget = torch.zeros((slots,), **i32)
+        active = torch.zeros((slots,), dtype=torch.bool, device=device)
+        return tokens, caches, pos, budget, active
+
+    return init
+
+
+def make_decode_tick(cfg: LMConfig, max_len: int, sampler):
+    """One decode tick over all S slots of the dense engine: per-slot
+    position decode (the ``swa_decode`` kernel on the card), device-side
+    sampling, budget/done bookkeeping."""
+
+    def tick(params, caches, tokens, pos, budget, active, generator):
+        logits, caches = Transformer.decode_step(cfg, params, caches, tokens,
+                                                 pos)
+        nxt = sampler(logits[:, -1, :], generator)               # (S,)
+        act = active.to(torch.int32)
+        emitted = torch.where(active, nxt, tokens[:, 0])
+        pos = pos + act
+        budget = budget - act
+        done = active & ((budget <= 0) | (pos >= max_len - 1))
+        return emitted[:, None], caches, pos, budget, active & ~done, done
+
+    return tick
 
 
 def make_paged_admit_step(cfg: LMConfig, max_len: int, sampler, page_size: int):
@@ -132,14 +210,15 @@ def make_paged_init_state(cfg: LMConfig, slots: int, num_pages: int,
 
 
 class ServeEngine:
-    """Slot-based continuous batching with device-resident slot state over a
-    block-paged KV pool with prefix sharing::
+    """Slot-based continuous batching with device-resident slot state, over
+    dense per-slot KV caches (the default; full length, or a ring buffer
+    with ``ring_cache``) or a block-paged KV pool with prefix sharing
+    (``paged=True``)::
 
-        engine = ServeEngine(cfg, params, slots=4, max_len=96, paged=True)
+        engine = ServeEngine(cfg, params, slots=4, max_len=96)
         finished = engine.run(build_stream("poisson", 16, vocab=cfg.vocab_size))
 
-    ``params`` must live on ``device`` (default ``cuda``).  Only the paged
-    engine is ported: ``paged=False`` raises ``NotImplementedError``."""
+    ``params`` must live on ``device`` (default ``cuda``)."""
 
     def __init__(self, cfg: LMConfig, params, *, slots: int, max_len: int,
                  sample: str = "greedy", temperature: float = 1.0,
@@ -148,9 +227,6 @@ class ServeEngine:
                  num_pages: int = None, device="cuda"):
         if cfg.is_encoder:
             raise ValueError("encoder-only arch has no decode step")
-        if not paged:
-            raise NotImplementedError(
-                f"the dense ServeEngine (paged=False) is {_NOT_PORTED}")
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -162,47 +238,88 @@ class ServeEngine:
         sampler = make_sampler(sample, temperature, top_k)
         self._seed = seed
         self._generator = torch.Generator(device=self.device)
-        self.page_size = page_size
-        self.pages_per_slot = pages_for(max_len, page_size)
-        # +1 for the trash page: with every unreferenced cached prefix
-        # evictable, the default pool can always grant what a free slot needs.
-        self.num_pages = num_pages or slots * self.pages_per_slot + 1
-        self._alloc = PageAllocator(self.num_pages, page_size)
-        self._admit_fn = make_paged_admit_step(cfg, max_len, sampler, page_size)
-        self._tick_fn = make_paged_decode_tick(cfg, max_len, sampler, page_size)
-        self._init_fn = make_paged_init_state(
-            cfg, slots, self.num_pages, page_size, self.pages_per_slot,
-            self.device)
+        self.paged = paged
+        if paged:
+            self.page_size = page_size
+            self.pages_per_slot = pages_for(max_len, page_size)
+            # +1 for the trash page: with every unreferenced cached prefix
+            # evictable, the default pool can always grant what a free slot
+            # needs.
+            self.num_pages = num_pages or slots * self.pages_per_slot + 1
+            self._alloc = PageAllocator(self.num_pages, page_size)
+            self._admit_fn = make_paged_admit_step(cfg, max_len, sampler,
+                                                   page_size)
+            self._tick_fn = make_paged_decode_tick(cfg, max_len, sampler,
+                                                   page_size)
+            self._init_fn = make_paged_init_state(
+                cfg, slots, self.num_pages, page_size, self.pages_per_slot,
+                self.device)
+        else:
+            self._admit_fn = make_admit_step(cfg, max_len, sampler)
+            self._tick_fn = make_decode_tick(cfg, max_len, sampler)
+            self._init_fn = make_init_state(cfg, slots, max_len, self.device)
         self.reset()
 
     @torch.inference_mode()
     def reset(self):
-        (self.tokens, self.caches, self.pt, self.pos, self.budget,
-         self.active) = self._init_fn()
-        self._alloc.reset()
-        self._pt_host = np.zeros((self.slots, self.pages_per_slot), np.int32)
-        self._slot_adm = [None] * self.slots      # slot -> Admission | None
+        if self.paged:
+            (self.tokens, self.caches, self.pt, self.pos, self.budget,
+             self.active) = self._init_fn()
+            self._alloc.reset()
+            self._pt_host = np.zeros((self.slots, self.pages_per_slot),
+                                     np.int32)
+            self._slot_adm = [None] * self.slots  # slot -> Admission | None
+        else:
+            (self.tokens, self.caches, self.pos, self.budget,
+             self.active) = self._init_fn()
         self._host_active = [None] * self.slots   # slot -> Request | None
         self.ticks = 0
         self.decode_ticks = 0    # ticks that ran the decode step
         # a reset engine reproduces a fresh ServeEngine(seed=...)
         self._generator.manual_seed(self._seed)
+        # hot-swap standby buffer and counters restart with the sampler, so
+        # back-to-back runs on one engine reproduce each other
+        self._standby = None
+        self.swaps = 0
+        self.swap_log = []       # tick index of each committed swap
         self._queue = []
         self._finished = []
         self._base = 0
         self._now = 0
         self._log = None
 
-    # -- not ported yet ------------------------------------------------------
+    # -- hot swap ------------------------------------------------------------
 
     def stage_params(self, params):
-        raise NotImplementedError(f"params hot-swap is {_NOT_PORTED}")
+        """Copy ``params`` onto the engine's device into the standby buffer,
+        off the tick path.  The served params are untouched until
+        :meth:`commit_swap`.  The copy is a real one even on the same device
+        (JAX arrays are immutable, tensors are not): a trainer that goes on
+        updating its tensors in place cannot change what is served."""
+        self._standby = _copy_to(params, self.device)
 
     def commit_swap(self):
-        raise NotImplementedError(f"params hot-swap is {_NOT_PORTED}")
+        """Flip the served params to the staged buffer.  Call it between
+        ticks: :meth:`tick` reads ``self.params`` once at entry, so every
+        token of a tick (admission prefill and decode) sees one version."""
+        if self._standby is None:
+            raise RuntimeError("commit_swap() without stage_params()")
+        self.params = self._standby
+        self._standby = None
+        self.swaps += 1
+        self.swap_log.append(self.ticks)
+        if self.paged:
+            # Cached prefix K/V was computed under the old params: drop the
+            # prefix map (pages pinned by in-flight slots live on, as a
+            # dense slot decodes on across a swap).
+            self._alloc.bump_epoch()
 
     def hot_swap(self, params):
-        raise NotImplementedError(f"params hot-swap is {_NOT_PORTED}")
+        """``stage_params`` + ``commit_swap`` in one call."""
+        self.stage_params(params)
+        self.commit_swap()
+
+    # -- not ported yet ------------------------------------------------------
 
     def carry(self):
         raise NotImplementedError(f"engine carry/restore is {_NOT_PORTED}")
@@ -219,16 +336,27 @@ class ServeEngine:
 
     def cache_page_bytes(self) -> int:
         """Bytes one physical page occupies summed over every layer's K and
-        V pool."""
+        V pool (0 on the dense engine)."""
+        if not self.paged:
+            return 0
         return sum(t.numel() // self.num_pages * t.element_size()
                    for t in _leaves(self.caches))
 
     def resident_cache_bytes(self, peak: bool = True) -> int:
-        """Pages in use (or their high-water mark) times the page bytes."""
+        """KV-cache residency: the dense engine always holds its full
+        ``slots x cache length`` allocation; the paged engine pages in use
+        (or their high-water mark with ``peak``) times the page bytes."""
+        if not self.paged:
+            return sum(t.numel() * t.element_size()
+                       for t in _leaves(self.caches))
         pages = self._alloc.peak if peak else self._alloc.in_use
         return pages * self.cache_page_bytes()
 
     def prefix_stats(self) -> dict:
+        """Prefix-cache counters (zeros on the dense engine)."""
+        if not self.paged:
+            return {"hits": 0, "misses": 0, "evictions": 0,
+                    "peak_pages": 0, "pages_in_use": 0}
         a = self._alloc
         return {"hits": a.hits, "misses": a.misses, "evictions": a.evictions,
                 "peak_pages": a.peak, "pages_in_use": a.in_use}
@@ -237,6 +365,27 @@ class ServeEngine:
         return torch.tensor(array, device=self.device)
 
     # -- admission -----------------------------------------------------------
+
+    def _admit_group(self, params, group, now, log):
+        """One batched dense admission: prompts right-padded to the group's
+        largest length bucket at the full slot batch.  ``params`` is the
+        tick's single params read."""
+        s = self.slots
+        length = self._bucket(max(len(r.prompt) for _, r in group))
+        prompts = np.zeros((s, length), np.int32)
+        lengths = np.ones((s,), np.int32)
+        max_news = np.ones((s,), np.int32)
+        fill = np.zeros((s,), bool)
+        for slot, req in group:
+            plen = len(req.prompt)
+            prompts[slot, :plen] = req.prompt
+            lengths[slot], max_news[slot], fill[slot] = plen, req.max_new, True
+        (self.tokens, self.caches, self.pos, self.budget, self.active,
+         first, done_now) = self._admit_fn(
+            params, self.caches, self.tokens, self.pos, self.budget,
+            self.active, self._tensor(prompts), self._tensor(lengths),
+            self._tensor(max_news), self._tensor(fill), self._generator)
+        self._post_admit(group, first, done_now, now, length, log)
 
     def _post_admit(self, group, first, done_now, now, length, log):
         """Pull (first, done) once, stamp the requests, finish the
@@ -310,12 +459,14 @@ class ServeEngine:
         req.done_at, req.t_done = now, t_wall
         self._host_active[slot] = None
         self._finished.append(req)
-        # Cached prefix pages stay resident at refcount zero for later hits.
-        # The device table is refreshed at the next admission; until then
-        # the stale row only backs trash-redirected writes and masked reads.
-        self._alloc.release(self._slot_adm[slot])
-        self._slot_adm[slot] = None
-        self._pt_host[slot, :] = TRASH_PAGE
+        if self.paged:
+            # Cached prefix pages stay resident at refcount zero for later
+            # hits.  The device table is refreshed at the next admission;
+            # until then the stale row only backs trash-redirected writes
+            # and masked reads.
+            self._alloc.release(self._slot_adm[slot])
+            self._slot_adm[slot] = None
+            self._pt_host[slot, :] = TRASH_PAGE
         if log:
             log(f"[t={now}] finish r{req.rid} ({len(req.out)} tokens)")
 
@@ -345,7 +496,10 @@ class ServeEngine:
         """One iteration of the serving loop: stamp newly eligible arrivals,
         admit them into free slots, run one decode tick over all slots
         (skipped while none is active), advance the virtual clock.  Returns
-        the requests finished during this tick."""
+        the requests finished during this tick.
+
+        ``self.params`` is read once at entry, so a :meth:`commit_swap`
+        between ticks is atomic: no tick mixes params versions."""
         params = self.params
         log, now, base = self._log, self._now, self._base
         queue = self._queue
@@ -361,13 +515,24 @@ class ServeEngine:
         batch = []
         while free and queue and queue[0].arrival + base <= now:
             batch.append((free.pop(0), queue.pop(0)))
-        if batch:
+        if self.paged and batch:
             self._admit_paged(params, batch, now, log)
+        elif batch:
+            # One admission per tick at the largest arrival's bucket: the
+            # padding is invisible (lengths= masks it), so splitting
+            # same-tick arrivals per bucket would only add prefills.
+            self._admit_group(params, batch, now, log)
         if any(r is not None for r in self._host_active):
-            (self.tokens, self.caches, self.pos, self.budget,
-             self.active, done) = self._tick_fn(
-                params, self.caches, self.pt, self.tokens, self.pos,
-                self.budget, self.active, self._generator)
+            if self.paged:
+                (self.tokens, self.caches, self.pos, self.budget,
+                 self.active, done) = self._tick_fn(
+                    params, self.caches, self.pt, self.tokens, self.pos,
+                    self.budget, self.active, self._generator)
+            else:
+                (self.tokens, self.caches, self.pos, self.budget,
+                 self.active, done) = self._tick_fn(
+                    params, self.caches, self.tokens, self.pos, self.budget,
+                    self.active, self._generator)
             self.decode_ticks += 1
             emitted_np, done_np = torch.stack(
                 [self.tokens[:, 0], done.to(torch.int32)]).cpu().numpy()
@@ -398,3 +563,9 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _copy_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, copy=True)

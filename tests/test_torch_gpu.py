@@ -3,12 +3,12 @@ tests/test_torch_*.py`` on a machine with a CUDA card and ``nvcc``.
 
 Every test here needs the card and skips without one.  The file imports no
 JAX (the GPU machine has none): the hand-written ``paged_decode``,
-``kd_stats_fwd``, ``kd_grad_bwd``, ``kd_quant_stats_fwd`` and
-``kd_quant_grad_bwd`` kernels are held against the port's plain PyTorch
-versions (f32 within 1e-5, bf16 within 1e-2), the paged engine on the card
-against the same engine on the CPU (greedy tokens equal, f32 with TF32
-off), and federated rounds on the card (with and without int8 uplink
-transport) against the same rounds on the CPU.
+``swa_decode``, ``kd_stats_fwd``, ``kd_grad_bwd``, ``kd_quant_stats_fwd``
+and ``kd_quant_grad_bwd`` kernels are held against the port's plain
+PyTorch versions (f32 within 1e-5, bf16 within 1e-2), the paged and dense
+engines on the card against the same engines on the CPU (greedy tokens
+equal, f32 with TF32 off), and federated rounds on the card (with and
+without int8 uplink transport) against the same rounds on the CPU.
 """
 
 import os
@@ -25,6 +25,7 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import kd_loss as kd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_decode  # noqa: E402
+from repro_torch.kernels.swa_decode import swa_decode  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.serve import ServeEngine, build_stream  # noqa: E402
 from repro_torch.transport import codecs  # noqa: E402
@@ -65,7 +66,8 @@ def _case(seed, device, *, b=4, n=2, g=4, d=64, ps=16, pp=5):
 @pytest.mark.parametrize("shape", [dict(), dict(g=2, d=32, ps=8, pp=9),
                                    dict(n=8, g=4, d=64, ps=16, pp=32),
                                    dict(g=1, ps=64, pp=3),
-                                   dict(g=8, d=128, ps=12, pp=7)])
+                                   dict(g=8, d=128, ps=12, pp=7),
+                                   dict(g=16, d=32, ps=8, pp=3)])
 def test_kernel_matches_ref(cuda, dtype, window, shape):
     q, kp, vp, pt, pos = _case(3, cuda, **shape)
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
@@ -93,9 +95,12 @@ def test_kernel_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="aligned"):
         paged_decode(q, torch.cat([kp.view(-1), kp.view(-1)[:1]])[1:].view(
             kp.shape), vp, pt, pos)
-    with pytest.raises(ValueError, match="G <= 32"):
+    with pytest.raises(ValueError, match="G <= 16"):
         paged_decode(q[..., :48].contiguous(), kp[..., :48].contiguous(),
                      vp[..., :48].contiguous(), pt, pos)
+    # 32 query groups (1,024 threads) would fail to launch: refused up front
+    with pytest.raises(ValueError, match="G <= 16"):
+        paged_decode(q.repeat(1, 1, 8, 1).contiguous(), kp, vp, pt, pos)
 
 
 def _to(tree, device):
@@ -119,6 +124,133 @@ def test_engine_on_card_matches_cpu_and_runs_the_kernel(cuda):
     assert outs["cpu"] == outs["cuda"]
     assert launches["cpu"] == 0
     assert launches["cuda"] == cfg.num_layers * engine.decode_ticks > 0
+
+
+# -- dense / ring / windowed decode attention --------------------------------
+
+
+def _swa_case(seed, device, *, b=4, w=512, n=8, g=4, d=64, pos=None):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, n, g, d)),
+              rng.standard_normal((b, w, n, d)),
+              rng.standard_normal((b, w, n, d))]
+    if pos is None:
+        pos = rng.integers(0, w, size=b)
+    q, kc, vc = (torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in arrays)
+    return q, kc, vc, torch.as_tensor(np.asarray(pos, np.int32)).to(device)
+
+
+# chip_smoke.py's cases (the serving shape with pos 0..W-1, a window of 128
+# on it, the --ring cache wrapped, the long-context ring at B=1), odd W,
+# every G the kernel takes, D up to 256, and rows with no valid slot.
+SWA_CASES = [
+    dict(pos=[0, 170, 341, 511]),
+    dict(pos=[0, 100, 300, 511], window=128),
+    dict(w=32, pos=[32, 95, 1000, 31], window=32, ring=True),
+    dict(b=1, w=8192, pos=[500_000], window=8192, ring=True),
+    dict(w=37, pos=[0, 36, 20, 5]),
+    dict(w=300, pos=[299, 5000, 301, 7], window=57, ring=True),
+    dict(w=1, pos=[0, 3, 9, 1], ring=True),
+    dict(w=100, n=2, g=1, pos=[99, 0, 50, 64], window=10),
+    dict(w=65, n=1, g=16, d=32, pos=[64, 0, 63, 33]),
+    dict(w=70, n=2, g=8, d=128, pos=[69, 1, 40, 68], window=33),
+    dict(w=40, n=2, g=2, d=256, pos=[39, 12, 0, 27], ring=True),
+    dict(w=16, n=2, pos=[-1, 5, 200, 15]),
+    dict(w=16, n=2, pos=[-1, 5, 200, 15], ring=True, window=3),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SWA_CASES, ids=lambda c: str(sorted(c.items())))
+def test_swa_kernel_matches_ref(cuda, dtype, case):
+    case = dict(case)
+    window, ring = case.pop("window", None), case.pop("ring", False)
+    q, kc, vc, pos = _swa_case(5, cuda, **case)
+    q, kc, vc = q.to(dtype), kc.to(dtype), vc.to(dtype)
+    before = swa_decode.launches
+    got = ops.swa_decode_attn(q, kc, vc, pos, window=window, ring=ring)
+    torch.cuda.synchronize()
+    assert swa_decode.launches == before + 1
+    want = ref.swa_decode_ref(q, kc, vc, pos, window=window, ring=ring)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(want.float().abs().max().item(), 1.0), err
+
+
+def test_swa_kernel_takes_a_scalar_pos(cuda):
+    q, kc, vc, _ = _swa_case(6, cuda, w=48)
+    got = ops.swa_decode_attn(q, kc, vc, 30, window=20)
+    want = ref.swa_decode_ref(q, kc, vc, 30, window=20)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+
+
+def test_swa_kernel_wrapper_checks_inputs(cuda):
+    q, kc, vc, pos = _swa_case(7, cuda, w=32)
+    with pytest.raises(TypeError):
+        swa_decode(q.double(), kc, vc, pos)
+    with pytest.raises(TypeError):
+        swa_decode(q, kc.to(torch.bfloat16), vc, pos)
+    with pytest.raises(TypeError):
+        swa_decode(q, kc, vc, pos.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        swa_decode(q, kc.transpose(0, 1).contiguous().transpose(0, 1), vc,
+                   pos)
+    with pytest.raises(ValueError, match="window"):
+        swa_decode(q, kc, vc, pos, window=0)
+    with pytest.raises(ValueError, match="aligned"):
+        swa_decode(q, torch.cat([kc.view(-1), kc.view(-1)[:1]])[1:].view(
+            kc.shape), vc, pos)
+    with pytest.raises(ValueError, match="G <= 16"):
+        swa_decode(q[..., :48].contiguous(), kc[..., :48].contiguous(),
+                   vc[..., :48].contiguous(), pos)
+    with pytest.raises(ValueError, match="G <= 16"):
+        swa_decode(q.repeat(1, 1, 5, 1)[:, :, :17].contiguous(), kc, vc, pos)
+    with pytest.raises(ValueError, match="pos"):
+        swa_decode(q, kc, vc, pos[:2].contiguous())
+    with pytest.raises(ValueError, match="does not match"):
+        swa_decode(q, kc[:, :, :1].contiguous(), vc[:, :, :1].contiguous(),
+                   pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        swa_decode(q.cpu(), kc.cpu(), vc.cpu(), pos.cpu())
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_dense_engine_on_card_matches_cpu_and_runs_the_kernel(cuda, ring):
+    """The dense engine's greedy tokens on the card equal the CPU's, and
+    every decode tick launched ``swa_decode`` once per layer."""
+    import dataclasses
+
+    cfg = registry.get_smoke_config("granite-3-2b")
+    if ring:
+        cfg = dataclasses.replace(cfg, sliding_window=32, ring_cache=True)
+    params = Transformer.init(cfg, 1, device="cpu")
+    reqs = lambda: build_stream("bursty", 6, vocab=cfg.vocab_size, seed=4,  # noqa: E731
+                                prompt_max=40, out_max=16)
+    outs, launches, ticks = {}, {}, {}
+    for device in ("cpu", "cuda"):
+        engine = ServeEngine(cfg, _to(params, device), slots=3, max_len=64,
+                             device=device)
+        before = swa_decode.launches
+        outs[device] = {r.rid: r.out for r in engine.run(reqs())}
+        launches[device] = swa_decode.launches - before
+        ticks[device] = engine.decode_ticks
+    assert outs["cpu"] == outs["cuda"]
+    assert launches["cpu"] == 0
+    assert launches["cuda"] == cfg.num_layers * ticks["cuda"] > 0
+
+
+def test_dense_decode_step_launches_the_kernel_once_per_layer(cuda):
+    cfg = registry.get_smoke_config("granite-3-2b")
+    params = Transformer.init(cfg, 2, device="cuda")
+    caches = Transformer.init_cache(cfg, 2, 32, device=cuda)
+    token = torch.tensor([[3], [7]], dtype=torch.int32, device=cuda)
+    pos = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    before = swa_decode.launches
+    logits, _ = Transformer.decode_step(cfg, params, caches, token, pos)
+    torch.cuda.synchronize()
+    assert swa_decode.launches - before == cfg.num_layers
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
 
 
 # -- the fused KD loss kernels ----------------------------------------------

@@ -10,6 +10,7 @@ package, and a CUDA entry point raises when there is no card.
 """
 
 import ast
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -203,23 +204,33 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 def test_unported_paths_raise():
+    """What still raises: the engines' carry/restore (slice 6, checkpoints),
+    the CLI's --legacy loop (slice 9), recurrent sub-blocks (slice 8) and
+    the unported archs."""
     cfg = registry.get_smoke_config("granite-3-2b")
     params = Transformer.init(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, params, slots=1, max_len=16, device="cpu")
-    engine = ServeEngine(cfg, params, slots=1, max_len=16, paged=True,
-                         device="cpu")
-    for call in (lambda: engine.hot_swap(params), engine.carry,
-                 lambda: engine.stage_params(params)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    with pytest.raises(KeyError, match="not ported"):
-        registry.get_config("qwen3-14b")
+    for paged in (False, True):
+        engine = ServeEngine(cfg, params, slots=1, max_len=16, paged=paged,
+                             device="cpu")
+        for call in (engine.carry, lambda: engine.restore(None, {}, [])):
+            with pytest.raises(NotImplementedError, match="slice 6"):
+                call()
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        serve_cli.main(["--device", "cpu", "--legacy"])
+    hybrid = dataclasses.replace(cfg, block_pattern=("rglru", "attn"))
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        Transformer.init_cache(hybrid, 1, 16, device="cpu")
+    with pytest.raises(ValueError, match="recurrent"):
+        Transformer.prefill(hybrid, params, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.int32)}, 16, lengths=torch.ones(1))
+    for arch in ("qwen3-14b", "mamba2-370m", "kimi-k2-1t-a32b"):
+        with pytest.raises(KeyError, match="not ported"):
+            registry.get_config(arch)
 
 
 def test_serve_cli_runs_on_cpu(capsys):
     finished = serve_cli.main(["--device", "cpu", "--requests", "3",
-                               "--slots", "2", "--max-len", "48",
+                               "--slots", "2", "--max-len", "48", "--paged",
                                "--shared-prefix", "16"])
     assert len(finished) == 3
     assert "prefix hits" in capsys.readouterr().out
