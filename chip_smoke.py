@@ -69,7 +69,31 @@ together), then:
               the card's dense engine against its paged one; one hot-swap
               to a second weight set at a fixed tick, card vs CPU: greedy
               tokens must be equal;
-16. kernels   prints one JSON line per the port's kernel table.
+16. ssd kernel    holds ``ssd`` against its plain version (f32, TF32 off)
+              at Mamba-2 370m's serving shape (4 slots x 32 heads, p=64,
+              n=128, one B/C group) at s = 32, 224 (chunk 112), 151 (chunk
+              1) and 2048 (16 chunks of 128) and at SMOKE's p = n = 32,
+              chunk 32, s = 96, and times each beside the plain version and
+              its f32-operations bound;
+17. rglru kernel  holds ``rglru`` against its plain version at (4, 224,
+              4096), (4, 32, 4096), (4, 2048, 4096), (2, 128, 130) and (1,
+              384, 128) and times each beside the plain version and its
+              bytes bound;
+18. swa recurrentgemma   holds ``swa_decode`` against its plain version at
+              RecurrentGemma-9B's local attention (B=4, W=512, N=1, G=16,
+              D=256, window 2048; f32 and bf16) and times it;
+19. serve recurrent   serves phase 3's stream on the dense engine in bf16
+              with Mamba-2 370m at full width and depth (after a warm-up
+              run), then RecurrentGemma-9B, and checks ssd launches == 48 x
+              prefills, rglru launches == 26 x prefills, swa_decode launches
+              == 12 x decode ticks and no paged_decode launch;
+20. recurrent parity  both recurrent SMOKE configs in f32 (TF32 off) on the
+              card and on the CPU from the same weights, on a schedule of
+              same-tick arrivals of equal and of different prompt lengths
+              that cross ``ssm_chunk`` (prime lengths included) and on a
+              bursty stream: greedy tokens must be equal;
+21. kernels   prints one JSON line per the port's kernel table (eight
+              kernels).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -108,12 +132,14 @@ from repro_torch.kernels import kd_loss as kd_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pd_mod  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import rglru as rglru_mod  # noqa: E402
+from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.kernels import swa_decode as swa_mod  # noqa: E402
 from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
 from repro_torch.launch.serve import summarize  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.nn import attention  # noqa: E402
-from repro_torch.serve import ServeEngine, build_stream  # noqa: E402
+from repro_torch.serve import Request, ServeEngine, build_stream  # noqa: E402
 from repro_torch.serve.paged import pages_for  # noqa: E402
 from repro_torch.transport import parse_codec  # noqa: E402
 from repro_torch.transport.method import PAYLOAD_KEY  # noqa: E402
@@ -184,7 +210,7 @@ def phase_device():
     return name
 
 
-KERNEL_SOURCES = ("paged_decode", "kd_loss", "swa_decode")
+KERNEL_SOURCES = ("paged_decode", "kd_loss", "swa_decode", "ssd", "rglru")
 
 
 def phase_build():
@@ -975,28 +1001,37 @@ LONG_ATTN = dataclasses.replace(
     registry.for_shape("granite-3-2b", "long_500k"),
     ring_cache=True).attn_cfg(local=False)
 
-# (label, B, W, window, ring, pos, copies): the dense engine's cache at the
-# serving shape with pos from 0 to W-1; a window of 128 on it; --ring's
-# 32-slot ring at wrapped positions; the long-context ring.  Copies of the
-# caches make each timed set exceed the 50 MB L2 where one layer's cache
-# would not stay there across a 40-layer tick.
+# (label, B, W, window, ring, pos, copies, (N, G, D)): the dense engine's
+# cache at the serving shape with pos from 0 to W-1; a window of 128 on it;
+# --ring's 32-slot ring at wrapped positions; the long-context ring, all at
+# Granite's heads.  Copies of the caches make each timed set exceed the
+# 50 MB L2 where one layer's cache would not stay there across a 40-layer
+# tick.
+GRANITE_HEADS = (8, 4, 64)
 SWA_CASES = (
-    ("full", SLOTS, MAX_LEN, None, False, [0, 170, 341, 511], 16),
-    ("window 128", SLOTS, MAX_LEN, 128, False, [0, 100, 300, 511], 16),
-    ("ring 32", SLOTS, 32, 32, True, [95, 260, 1000, 33], 16),
+    ("full", SLOTS, MAX_LEN, None, False, [0, 170, 341, 511], 16,
+     GRANITE_HEADS),
+    ("window 128", SLOTS, MAX_LEN, 128, False, [0, 100, 300, 511], 16,
+     GRANITE_HEADS),
+    ("ring 32", SLOTS, 32, 32, True, [95, 260, 1000, 33], 16, GRANITE_HEADS),
     (f"long ring {LONG_ATTN.window}", LONG_SHAPE.global_batch,
      attention.cache_len(LONG_ATTN, LONG_SHAPE.seq_len), LONG_ATTN.window,
-     True, [LONG_SHAPE.seq_len - 1], 4),
+     True, [LONG_SHAPE.seq_len - 1], 4, GRANITE_HEADS),
 )
+# RecurrentGemma-9B's local attention on the dense engine's cache: one KV
+# head, 16 query groups of 256 (phase 18).
+RG_SWA_CASE = ("recurrentgemma local", SLOTS, MAX_LEN, 2048, False,
+               [0, 170, 341, 511], 32, (1, 16, 256))
 
 
-def _swa_inputs(b, w, pos, dtype, seed=0, copies=1):
-    """Sets of (q, k_cache, v_cache, pos) on the card at Granite's heads:
-    N=8 KV heads, G=4 query groups, D=64."""
+def _swa_inputs(b, w, pos, dtype, heads=GRANITE_HEADS, seed=0, copies=1):
+    """Sets of (q, k_cache, v_cache, pos) on the card: ``heads`` = (N KV
+    heads, G query groups, D)."""
+    n, g, d = heads
     gen = torch.Generator(device="cuda").manual_seed(seed)
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    q = torch.randn((b, 8, 4, 64), generator=gen, device="cuda").to(dtype)
-    return [(q,) + tuple(torch.randn((b, w, 8, 64), generator=gen,
+    q = torch.randn((b, n, g, d), generator=gen, device="cuda").to(dtype)
+    return [(q,) + tuple(torch.randn((b, w, n, d), generator=gen,
                                      device="cuda").to(dtype)
                          for _ in range(2)) + (pos_t,)
             for _ in range(copies)]
@@ -1034,14 +1069,14 @@ def _swa_sdpa_inputs(q, kc, vc, valid):
     return q.reshape(b, n * g, 1, d), kd, vd, valid[:, None, None, :]
 
 
-def phase_swa_kernel():
-    """Returns the kernel-table entry of swa_decode at the dense engine's
+def phase_swa_kernel(cases=SWA_CASES):
+    """Returns the kernel-table entry of swa_decode at the first case's
     shape (launches filled in by the serve dense phase)."""
     entry = None
-    for label, b, w, window, ring, pos, copies in SWA_CASES:
+    for label, b, w, window, ring, pos, copies, heads in cases:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
-            q, kc, vc, p = _swa_inputs(b, w, pos, dtype, seed=1)[0]
+            q, kc, vc, p = _swa_inputs(b, w, pos, dtype, heads, seed=1)[0]
             got = swa_mod.swa_decode(q, kc, vc, p, window=window, ring=ring)
             torch.cuda.synchronize()
             want = kref.swa_decode_ref(q, kc, vc, p, window=window, ring=ring)
@@ -1054,7 +1089,8 @@ def phase_swa_kernel():
                   f"{TOL[dtype]}")
             errs[dtype] = (err, rel)
         # Timing at the main path's type (bf16).
-        sets = _swa_inputs(b, w, pos, torch.bfloat16, seed=2, copies=copies)
+        sets = _swa_inputs(b, w, pos, torch.bfloat16, heads, seed=2,
+                           copies=copies)
         fn = lambda *a: swa_mod.swa_decode(  # noqa: E731
             *a, window=window, ring=ring)
         ms = time_ms(fn, sets)
@@ -1070,7 +1106,8 @@ def phase_swa_kernel():
         library_ms = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mm), sdpa_sets)
         bound_ms, bound_by = _swa_bound(sets[0][0], valid, 2)
-        print(f"[swa] {label}: B={b} W={w} N=8 G=4 D=64 window={window} "
+        print(f"[swa] {label}: B={b} W={w} N={heads[0]} G={heads[1]} "
+              f"D={heads[2]} window={window} "
               f"ring={ring} pos={pos} ({int(valid.sum())} valid slots): "
               f"relative err f32 {errs[torch.float32][1]:.3g}, bf16 "
               f"{errs[torch.bfloat16][1]:.3g} (limits 1e-5, 1e-2); bf16 "
@@ -1203,6 +1240,287 @@ def phase_dense_parity():
     print(f"[dense parity] {n_tok} tokens a run")
 
 
+# -- the recurrent scans and recurrent serving ------------------------------
+
+# The JAX package's own tolerance for its SSD kernel against its reference
+# (tests/test_kernels.py): the kernel sums q-long dot products in another
+# order than the plain version's einsums; exp(csum) reaches denormals.
+TOL_SSD = 3e-4
+# (label, b, s, h, p, n, g, chunk): Mamba-2 370m's serving shape (4 slots,
+# 32 heads of 64, d_state 128, one group, chunk 128) at the stream's
+# shortest and longest prompts, a prime length (chunk 1) and 2,048 tokens;
+# SMOKE's heads (16 of 32, d_state 32, chunk 32).  The first is the main
+# path's shape in the kernel table.
+SSD_CASES = (
+    ("serve s=224", SLOTS, 224, 32, 64, 128, 1, 128),
+    ("serve s=32", SLOTS, 32, 32, 64, 128, 1, 128),
+    ("serve s=151 (chunk 1)", SLOTS, 151, 32, 64, 128, 1, 128),
+    ("serve s=2048", SLOTS, 2048, 32, 64, 128, 1, 128),
+    ("smoke s=96", SLOTS, 96, 16, 32, 32, 1, 32),
+)
+# (label, B, S, D): RecurrentGemma-9B's d_rnn at the stream's longest prompt
+# (the main path's shape in the kernel table), its shortest and 2,048
+# tokens; the JAX tests' D = 130 and their long-carry case.
+RGLRU_CASES = (
+    ("serve S=224", SLOTS, 224, 4096), ("serve S=32", SLOTS, 32, 4096),
+    ("serve S=2048", SLOTS, 2048, 4096), ("D=130", 2, 128, 130),
+    ("long carry", 1, 384, 128),
+)
+L2_BYTES = 50 * 2 ** 20
+
+
+def _ssd_inputs(b, s, h, p, n, g, seed=0, copies=1):
+    """Sets of (x, dt, A, B, C) on the card: the JAX kernel test's
+    distributions (x ~ N(0,1), dt = softplus(N(0,1)), A = -exp(0.3 N(0,1)),
+    B and C ~ 0.5 N(0,1))."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    A = -torch.exp(0.3 * randn(h))
+    return [(randn(b, s, h, p), F.softplus(randn(b, s, h)), A,
+             0.5 * randn(b, s, g, n), 0.5 * randn(b, s, g, n))
+            for _ in range(copies)]
+
+
+def _ssd_bound(b, s, h, p, n, g, q):
+    """Least time for one call: b h (s/q) (q (q + 1) (n + p) + 4 q n p) f32
+    operations at the CUDA-core peak (the reference is f32), against x, dt,
+    A, B, C read once and y, the state written once.  The scores and the
+    diagonal block's y count their causal half only (j <= i, the terms the
+    function needs); the carried state's y and the state update are dense."""
+    flops = b * h * (s // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
+    bytes_ = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                  + b * h * p * n)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_ssd_kernel():
+    """Returns the kernel-table entry of ssd at the main path's shape
+    (launches filled in by the serve recurrent phase)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    entry = None
+    for label, b, s, h, p, n, g, chunk in SSD_CASES:
+        q = ssd_mod.chunk_size(chunk, s)
+        args = _ssd_inputs(b, s, h, p, n, g, seed=1)[0]
+        y, state = ssd_mod.ssd(*args, q)
+        torch.cuda.synchronize()
+        wy, ws = kref.ssd_ref(*args, q)
+        errs = []
+        for got, want, what in ((y, wy, "y"), (state, ws, "state")):
+            check(got.shape == want.shape and got.dtype == torch.float32,
+                  f"ssd {label} {what}: {tuple(got.shape)} {got.dtype}")
+            diff = (got - want).abs()
+            excess = (diff - TOL_SSD * (1 + want.abs())).max().item()
+            check(math.isfinite(diff.max().item()) and excess <= 0,
+                  f"ssd {label} {what}: max abs err {diff.max().item()} "
+                  f"outside {TOL_SSD} abs + {TOL_SSD} rel")
+            errs.append(diff.max().item())
+        per_set = 4 * (2 * b * s * h * p + 2 * b * s * g * n)
+        sets = _ssd_inputs(b, s, h, p, n, g, seed=2,
+                           copies=max(1, -(-L2_BYTES // per_set)))
+        ms = time_ms(lambda *a: ssd_mod.ssd(*a, q), sets, reps=5)
+        plain_ms = time_ms(lambda *a: kref.ssd_ref(*a, q), sets, reps=5)
+        bound_ms, bound_by = _ssd_bound(b, s, h, p, n, g, q)
+        print(f"[ssd] {label}: b={b} s={s} h={h} p={p} n={n} g={g} chunk "
+              f"{q}: max abs err y {errs[0]:.3g}, state {errs[1]:.3g} "
+              f"(limit {TOL_SSD} abs + {TOL_SSD} rel); kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}), {bound_ms / ms:.1%} of the bound; library: "
+              f"none (no PyTorch call computes the SSD scan)")
+        if entry is None:
+            entry = {"name": "ssd", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/ssd.cu",
+                     "replaces": "src/repro/kernels/ssd.py:73",
+                     "launches": None, "max_abs_err": max(errs), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+        del sets
+    return entry
+
+
+def _rglru_inputs(b, s, d, seed=0, copies=1):
+    """Sets of (a, b) on the card: a = sigmoid(N(0,1)), b ~ N(0,1) (the
+    JAX kernel tests' distributions)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(torch.sigmoid(torch.randn((b, s, d), generator=gen,
+                                       device="cuda")),
+             torch.randn((b, s, d), generator=gen, device="cuda"))
+            for _ in range(copies)]
+
+
+def phase_rglru_kernel():
+    """Returns the kernel-table entry of rglru at the main path's shape
+    (launches filled in by the serve recurrent phase)."""
+    entry = None
+    for label, b, s, d in RGLRU_CASES:
+        a, x = _rglru_inputs(b, s, d, seed=1)[0]
+        got = rglru_mod.rglru(a, x)
+        torch.cuda.synchronize()
+        want = kref.rglru_ref(a, x)
+        check(got.shape == want.shape and got.dtype == torch.float32,
+              f"rglru {label}: {tuple(got.shape)} {got.dtype}")
+        diff = (got - want).abs()
+        err = diff.max().item()
+        excess = (diff - 1e-5 * (1 + want.abs())).max().item()
+        check(math.isfinite(err) and excess <= 0,
+              f"rglru {label}: max abs err {err} outside 1e-5 abs + 1e-5 rel")
+        bytes_ = 12 * b * s * d
+        sets = _rglru_inputs(b, s, d, seed=2,
+                             copies=max(1, -(-L2_BYTES // bytes_)))
+        ms = time_ms(lambda *a: rglru_mod.rglru(*a), sets)
+        plain_ms = time_ms(lambda *a: kref.rglru_ref(*a), sets)
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * b * s * d / F32_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"[rglru] {label}: B={b} S={s} D={d}: max abs err {err:.3g} "
+              f"(limit 1e-5 abs + 1e-5 rel); kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of the bound; library: none (no PyTorch "
+              f"call computes a linear recurrence)")
+        if entry is None:
+            entry = {"name": "rglru", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/rglru.cu",
+                     "replaces": "src/repro/kernels/rglru.py:40",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+        del sets
+    return entry
+
+
+def count_prefills(engine):
+    """Wrap the engine's admission step so that each prefill it runs is
+    counted; returns the list that grows by one a prefill."""
+    admit, calls = engine._admit_fn, []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return admit(*a, **k)
+
+    engine._admit_fn = counted
+    return calls
+
+
+def _serve_recurrent(arch):
+    """Phase 3's stream on the dense engine with ``arch`` at full width and
+    depth in bf16, after a two-request warm-up.  Returns every serving
+    kernel's launches in the measured run (each count set to 0 just before
+    it)."""
+    cfg = registry.get_config(arch)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = Transformer.init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serve recurrent] {cfg.name}: {n_params / 1e9:.3f} B parameters "
+          f"in {cfg.param_dtype} initialised on the card in "
+          f"{time.perf_counter() - t0:.2f}s")
+    stream = lambda n: build_stream(  # noqa: E731
+        "poisson", n, vocab=cfg.vocab_size, seed=0, prompt_max=192,
+        out_max=32, shared_prefix=32)
+    engine = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                         device="cuda")
+    engine.run(stream(2))                     # warm-up: cuBLAS, allocator
+    engine.reset()
+    prefills = count_prefills(engine)
+    reqs = stream(8)
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
+             for i in range(cfg.num_layers)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (ssd_mod.ssd, rglru_mod.rglru, swa_mod.swa_decode,
+               pd_mod.paged_decode):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    finished = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in (
+        ssd_mod.ssd, rglru_mod.rglru, swa_mod.swa_decode, pd_mod.paged_decode)}
+    stats = summarize(finished, wall)
+    print(f"[serve recurrent] {cfg.name}: {stats['requests']}/8 requests, "
+          f"{stats['tokens']} tokens in {stats['seconds']}s = "
+          f"{stats['tok_per_sec']} tok/s; TTFT p50/p99 "
+          f"{stats['ttft_p50_ms']}/{stats['ttft_p99_ms']} ms; ITL p50/p99 "
+          f"{stats['itl_p50_ms']}/{stats['itl_p99_ms']} ms; recurrent state "
+          f"+ cache {engine.resident_cache_bytes()} B; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; {len(prefills)} prefills, "
+          f"{engine.decode_ticks} decode ticks; launches {launches}")
+    check(len(finished) == 8, f"{cfg.name}: {len(finished)} of 8 requests")
+    for r in finished:
+        want = min(r.max_new, MAX_LEN - len(r.prompt))
+        check(len(r.out) == want,
+              f"{cfg.name} r{r.rid}: {len(r.out)} tokens, want {want}")
+        check(all(0 <= t < cfg.vocab_size for t in r.out),
+              f"{cfg.name} r{r.rid}: token id outside the vocabulary")
+    want = {"ssd": kinds.count("ssd") * len(prefills),
+            "rglru": kinds.count("rglru") * len(prefills),
+            "swa_decode": kinds.count("local") * engine.decode_ticks,
+            "paged_decode": 0}
+    check(launches == want and len(prefills) > 0,
+          f"{cfg.name}: launches {launches}, want {want}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_recurrent():
+    """Mamba-2 370m and then RecurrentGemma-9B at full width in bf16 on the
+    dense engine: returns (ssd launches, rglru launches)."""
+    return (_serve_recurrent("mamba2-370m")["ssd"],
+            _serve_recurrent("recurrentgemma-9b")["rglru"])
+
+
+# (rid, arrival, prompt length, max_new): three arrivals at tick 0 with two
+# equal lengths and one prime length above ssm_chunk (32), two more at tick
+# 1 (64: two chunks; 41: prime) waiting for slots, and a late short one.
+PARITY_SCHEDULE = ((0, 0, 37, 6), (1, 0, 12, 5), (2, 0, 12, 7),
+                   (3, 1, 64, 4), (4, 1, 41, 5), (5, 4, 12, 3))
+
+
+def phase_recurrent_parity():
+    """Both recurrent SMOKE configs in f32, TF32 off: the card's dense
+    engine against the CPU's from the same weights.  Greedy tokens must be
+    equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in ("mamba2-370m", "recurrentgemma-9b"):
+        cfg = registry.get_smoke_config(arch)
+        weights = params_to_numpy(Transformer.init(cfg, 1, device="cpu"))
+
+        def schedule():
+            rng = np.random.default_rng(17)
+            return [Request(rid=r, arrival=a, max_new=m, prompt=rng.integers(
+                0, cfg.vocab_size - 1, size=n)) for r, a, n, m in
+                PARITY_SCHEDULE]
+
+        streams = {"schedule": schedule,
+                   "bursty": lambda: build_stream(
+                       "bursty", 8, vocab=cfg.vocab_size, seed=3,
+                       prompt_max=40, out_max=12)}
+        for name, reqs in streams.items():
+            outs = {}
+            for device in ("cpu", "cuda"):
+                engine = ServeEngine(cfg, params_from_numpy(weights, device),
+                                     slots=3, max_len=96, device=device)
+                prefills = count_prefills(engine)
+                outs[device] = ({r.rid: r.out for r in engine.run(reqs())},
+                                len(prefills))
+            n_tok = sum(len(o) for o in outs["cpu"][0].values())
+            same = sum(outs["cpu"][0][r] == outs["cuda"][0][r]
+                       for r in outs["cpu"][0])
+            print(f"[recurrent parity] {cfg.name} f32, {name}: {same}/"
+                  f"{len(outs['cpu'][0])} requests ({n_tok} tokens, "
+                  f"{outs['cpu'][1]} prefills) identical card vs CPU")
+            check(outs["cpu"] == outs["cuda"],
+                  f"recurrent parity: {cfg.name} {name} differ card vs CPU")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1238,8 +1556,13 @@ def main():
     swa_entry = phase_swa_kernel()
     swa_entry["launches"] = phase_serve_dense()
     phase_dense_parity()
+    ssd_entry = phase_ssd_kernel()
+    rglru_entry = phase_rglru_kernel()
+    phase_swa_kernel((RG_SWA_CASE,))
+    ssd_entry["launches"], rglru_entry["launches"] = phase_serve_recurrent()
+    phase_recurrent_parity()
     print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries
-                      + [swa_entry]}))
+                      + [swa_entry, ssd_entry, rglru_entry]}))
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -14,14 +14,16 @@ from repro_torch.configs.shapes import SHAPES
 
 ARCHS = {
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 # Registered in the JAX package, waiting for their sub-blocks to be ported
-# (M-RoPE, MoE, SSD, RG-LRU, encoder front-ends; ROADMAP queue 1).
+# (M-RoPE, MoE, qk-norm and QKV-bias configs, encoder front-ends; ROADMAP
+# queue 1).
 NOT_PORTED = (
-    "qwen2-vl-72b", "recurrentgemma-9b", "mamba2-370m", "hubert-xlarge",
-    "qwen3-14b", "nemotron-4-340b", "qwen1.5-4b", "kimi-k2-1t-a32b",
-    "phi3.5-moe-42b-a6.6b",
+    "qwen2-vl-72b", "hubert-xlarge", "qwen3-14b", "nemotron-4-340b",
+    "qwen1.5-4b", "kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b",
 )
 
 

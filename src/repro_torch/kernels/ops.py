@@ -8,6 +8,9 @@ import torch
 from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.rglru import rglru as rglru_kernel
+from repro_torch.kernels.ssd import chunk_size
+from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.kernels.swa_decode import swa_decode
 
 
@@ -31,6 +34,29 @@ def swa_decode_attn(q, k_cache, v_cache, pos, *, window=None, ring=False):
                                    ring=ring)
     return swa_decode(q, k_cache, v_cache, pos.contiguous(), window=window,
                       ring=ring)
+
+
+def ssd(x, dt, A, B, C, chunk):
+    """The Mamba-2 SSD chunk scan (every SSD layer's prefill).  x (b, s, h,
+    p), B and C (b, s, g, n) are cast to f32 as the JAX ``ops.ssd`` does;
+    dt (b, s, h) and A (h,) are f32.  The chunk follows the JAX rule
+    (``min(chunk, s)``, lowered until it divides s), so the kernel and the
+    plain version cut the sequence at the same places.  Returns y (b, s, h,
+    p) f32 and the final state (b, h, p, n) f32."""
+    q = chunk_size(chunk, x.shape[1])
+    x, B, C = x.float(), B.float(), C.float()
+    if x.device.type == "cpu":
+        return _ref.ssd_ref(x, dt, A, B, C, q)
+    return ssd_kernel(x.contiguous(), dt.contiguous(), A.contiguous(),
+                      B.contiguous(), C.contiguous(), q)
+
+
+def rglru(a, b):
+    """The RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t (every RG-LRU
+    layer's prefill).  a, b (B, S, D) f32 -> h (B, S, D) f32."""
+    if a.device.type == "cpu":
+        return _ref.rglru_ref(a, b)
+    return rglru_kernel(a.contiguous(), b.contiguous())
 
 
 def kd_stats(labels, s, t, b, tau):

@@ -52,6 +52,21 @@ def swa_decode_ref(q, k_cache, v_cache, pos, window=None, ring=False):
     return torch.einsum("bngw,bwnd->bngd", p, v_cache.float()).to(q.dtype)
 
 
+def ssd_ref(x, dt, A, B, C, chunk):
+    """The Mamba-2 chunked SSD scan (``nn/ssm.py::ssd_reference``): x (b, s,
+    h, p), dt (b, s, h), A (h,), B and C (b, s, g, n) per group, f32.
+    Returns y (b, s, h, p) and the final state (b, h, p, n)."""
+    from repro_torch.nn.ssm import ssd_reference
+    return ssd_reference(x, dt, A, B, C, chunk)
+
+
+def rglru_ref(a, b):
+    """h_t = a_t h_{t-1} + b_t from h_0 = 0 along axis 1 of (B, S, D)
+    (``nn/rglru.py::rglru_scan_reference``)."""
+    from repro_torch.nn.rglru import rglru_scan_reference
+    return rglru_scan_reference(a, b)
+
+
 def kd_loss_ref(labels, s, t, b, tau):
     """Per-row buffered-KD loss: CE + tau^2 KL(t||s) [+ tau^2 KL(b||s)].
     s, t, b: (rows, V) logits (b may be None); labels (rows,) int."""

@@ -8,7 +8,10 @@ prefix-cache counters.
         --stream poisson --requests 8 --slots 4 [--ring | --paged] [--full] \
         [--device cpu]
 
-Weights are random, drawn from ``--seed`` on the device.
+``--arch mamba2-370m`` and ``--arch recurrentgemma-9b`` serve the recurrent
+archs on the dense engine with exact-length admission; ``--paged`` on them
+raises, as the JAX CLI does (recurrent state has no pages).  Weights are
+random, drawn from ``--seed`` on the device.
 """
 
 from __future__ import annotations

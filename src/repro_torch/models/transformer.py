@@ -3,10 +3,11 @@ or ring KV caches, and the block-paged pool) of
 ``repro.models.transformer``.
 
 Parameters are nested dicts of tensors with the JAX package's key names,
-shapes and layouts: sub-blocks of the ``block_pattern`` live under
-``params["blocks"]["b{i}"]`` stacked on a leading layer axis (a Python loop
-over that axis replaces ``lax.scan``), remainder layers under
-``"tail{j}"``.  Only attention sub-blocks with a dense MLP are ported.
+shapes, layouts and per-leaf dtypes: sub-blocks of the ``block_pattern``
+live under ``params["blocks"]["b{i}"]`` stacked on a leading layer axis (a
+Python loop over that axis replaces ``lax.scan``), remainder layers under
+``"tail{j}"``.  Sub-blocks are attention ("attn", "local"), Mamba-2 SSD
+("ssd") and RG-LRU ("rglru"), each with a dense MLP or none.
 """
 
 from __future__ import annotations
@@ -20,13 +21,15 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers as L
+from repro_torch.nn import rglru as rglru_lib
+from repro_torch.nn import ssm as ssm_lib
 
 NEG_INF = -1e30
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _NOT_PORTED = "not ported yet (ROADMAP.md queue 1)"
-_RECURRENT = "not ported yet (ROADMAP.md queue 1, slice 8: recurrent archs)"
+_ATTENTION = ("attn", "local")
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -35,8 +38,7 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The fields of the JAX ``LMConfig`` that the attention-only serving
-    paths read."""
+    """The fields of the JAX ``LMConfig`` that the serving paths read."""
 
     name: str
     num_layers: int
@@ -56,6 +58,12 @@ class LMConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None     # window for "local" attention sub-blocks
     sliding_window: Optional[int] = None  # if set, ALL attention is windowed
+    # SSM / RG-LRU
+    d_state: int = 128
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    d_rnn: Optional[int] = None
+    conv_width: int = 4
     is_encoder: bool = False
     dtype: str = "bfloat16"          # activation dtype
     param_dtype: str = "bfloat16"
@@ -96,6 +104,17 @@ class LMConfig:
             rope=self.rope, rope_theta=self.rope_theta, q_chunk=self.q_chunk,
             ring_cache=self.ring_cache)
 
+    def ssd_cfg(self) -> ssm_lib.SSDConfig:
+        return ssm_lib.SSDConfig(
+            d_model=self.d_model, d_state=self.d_state,
+            head_dim=self.ssm_head_dim, conv_width=self.conv_width,
+            chunk=self.ssm_chunk)
+
+    def rglru_cfg(self) -> rglru_lib.RGLRUConfig:
+        return rglru_lib.RGLRUConfig(
+            d_model=self.d_model, d_rnn=self.d_rnn or self.d_model,
+            conv_width=self.conv_width)
+
 
 # ---------------------------------------------------------------------------
 # Sub-blocks
@@ -127,23 +146,40 @@ def _mlp_apply(cfg: LMConfig, p, x):
     return _dense_mlp_apply(cfg, p, x), 0.0
 
 
-def _subblock_cache_init(cfg: LMConfig, kind: str, batch, max_len, device,
-                         stack=None):
-    if kind in ("attn", "local"):
-        return attn_lib.init_cache(cfg.attn_cfg(kind == "local"), batch,
-                                   max_len, dtype=cfg.adt, device=device,
-                                   stack=stack)
-    if kind in ("ssd", "rglru"):
-        raise NotImplementedError(f"the {kind!r} decode cache is {_RECURRENT}")
+def _recurrent(cfg: LMConfig, kind: str):
+    """(module, config) of a recurrent sub-block kind."""
+    if kind == "ssd":
+        return ssm_lib, cfg.ssd_cfg()
+    if kind == "rglru":
+        return rglru_lib, cfg.rglru_cfg()
     raise ValueError(kind)
 
 
+def _subblock_cache_init(cfg: LMConfig, kind: str, batch, max_len, device,
+                         stack=None):
+    """Attention K/V in the activation dtype; recurrent state (conv windows
+    included) in f32, as the JAX function builds them."""
+    if kind in _ATTENTION:
+        return attn_lib.init_cache(cfg.attn_cfg(kind == "local"), batch,
+                                   max_len, dtype=cfg.adt, device=device,
+                                   stack=stack)
+    lib, sub = _recurrent(cfg, kind)
+    return lib.init_cache(sub, batch, device=device, stack=stack)
+
+
 def _subblock_decode(cfg: LMConfig, kind: str, p, cache, x, pos, positions):
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(f"the {kind!r} decode step is {_RECURRENT}")
+    """One token through a sub-block; ``cache`` (the layer's views of the
+    stacked caches) is updated in place.  Attention writes its row there
+    itself; the recurrent steps return new state, copied back here."""
     h = _norm_apply(cfg, p["ln1"], x)
-    y, cache = attn_lib.decode_step(p["mixer"], cfg.attn_cfg(kind == "local"),
+    if kind in _ATTENTION:
+        y, _ = attn_lib.decode_step(p["mixer"], cfg.attn_cfg(kind == "local"),
                                     cache, h, pos, positions)
+    else:
+        lib, sub = _recurrent(cfg, kind)
+        y, new = lib.decode_step(p["mixer"], sub, cache, h)
+        for key, value in new.items():
+            cache[key].copy_(value)
     x = x + y
     if cfg.mlp != "none":
         m, _ = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
@@ -151,11 +187,17 @@ def _subblock_decode(cfg: LMConfig, kind: str, p, cache, x, pos, positions):
     return x, cache
 
 
+def attention_only(cfg: LMConfig) -> bool:
+    """True when every sub-block is attention (no recurrent state): such a
+    model can page its KV cache and prefill right-padded prompts."""
+    return all(k in _ATTENTION for k in cfg.block_pattern)
+
+
 def _assert_pageable(cfg: LMConfig):
     """Paged KV caching covers attention state only: recurrent sub-blocks
     carry dense per-slot state (no pages to share), and ring caches already
     bound their own memory."""
-    if any(k not in ("attn", "local") for k in cfg.block_pattern):
+    if not attention_only(cfg):
         raise ValueError(
             f"paged KV cache needs an attention-only block_pattern; "
             f"{cfg.block_pattern} has recurrent sub-blocks")
@@ -208,12 +250,10 @@ def _norm_init(cfg: LMConfig, stack, device):
     return p
 
 
-def _subblock_init(cfg: LMConfig, kind: str, stack, draw):
-    if kind not in ("attn", "local"):
-        raise NotImplementedError(f"sub-block {kind!r} is not ported yet")
+def _attn_init(cfg: LMConfig, kind: str, stack, draw):
     sh = (lambda *s: s) if stack is None else (lambda *s: (stack, *s))
     a = cfg.attn_cfg(kind == "local")
-    d, h, n, hd, ff = cfg.d_model, a.num_heads, a.kv_heads, a.head_dim, cfg.d_ff
+    d, h, n, hd = cfg.d_model, a.num_heads, a.kv_heads, a.head_dim
     std = 1.0 / math.sqrt(d)
     mixer = {"wq": draw(sh(d, h, hd), std), "wk": draw(sh(d, n, hd), std),
              "wv": draw(sh(d, n, hd), std), "wo": draw(sh(h, hd, d), std)}
@@ -223,6 +263,19 @@ def _subblock_init(cfg: LMConfig, kind: str, stack, draw):
         mixer.update(bq=full(0, h, hd), bk=full(0, n, hd), bv=full(0, n, hd))
     if a.qk_norm:
         mixer.update(q_norm=full(1, hd), k_norm=full(1, hd))
+    return mixer
+
+
+def _subblock_init(cfg: LMConfig, kind: str, stack, draw):
+    sh = (lambda *s: s) if stack is None else (lambda *s: (stack, *s))
+    d, ff = cfg.d_model, cfg.d_ff
+    std = 1.0 / math.sqrt(d)
+    if kind in _ATTENTION:
+        mixer = _attn_init(cfg, kind, stack, draw)
+    else:
+        lib, sub = _recurrent(cfg, kind)
+        mixer = lib.init(sub, draw.gen, draw.device, stack=stack,
+                         dtype=cfg.pdt)
     p = {"ln1": _norm_init(cfg, stack, draw.device), "mixer": mixer}
     if cfg.mlp == "none":
         return p
@@ -297,7 +350,8 @@ class Transformer:
     def init_cache(cfg: LMConfig, batch, max_len, *, device):
         """Zeroed dense caches in the tree shape of the params: (layers, B,
         W, N, D) K and V under "blocks", (B, W, N, D) for tails, W the
-        cache length (``max_len``, or the window for a ring cache)."""
+        cache length (``max_len``, or the window for a ring cache); f32
+        recurrent state and conv windows for "ssd" and "rglru" blocks."""
         caches = {}
         if cfg.n_super > 0:
             caches["blocks"] = {
@@ -334,8 +388,7 @@ class Transformer:
         length-aware, full-cache pad K/V is never attended), recurrent
         state would not be, so padded prefill is rejected for ssd/rglru
         blocks as in the JAX package."""
-        if lengths is not None and any(k != "attn" and k != "local"
-                                       for k in cfg.block_pattern):
+        if lengths is not None and not attention_only(cfg):
             raise ValueError(
                 "padded (bucketed) prefill needs length-aware recurrent "
                 f"state handling; block_pattern {cfg.block_pattern} has "
@@ -344,17 +397,20 @@ class Transformer:
         x, positions = Transformer._embed_inputs(cfg, params, batch)
 
         def block_prefill(p, kind, x):
-            if kind not in ("attn", "local"):
-                raise NotImplementedError(
-                    f"the {kind!r} prefill is {_RECURRENT}")
             h = _norm_apply(cfg, p["ln1"], x)
-            y, c = attn_lib.prefill(p["mixer"], cfg.attn_cfg(kind == "local"),
-                                    h, positions, max_len, lengths=lengths)
+            if kind in _ATTENTION:
+                y, c = attn_lib.prefill(p["mixer"],
+                                        cfg.attn_cfg(kind == "local"), h,
+                                        positions, max_len, lengths=lengths)
+                c = {k: v.to(cfg.adt) for k, v in c.items()}
+            else:   # f32 state, conv windows in h's dtype
+                lib, sub = _recurrent(cfg, kind)
+                y, c = lib.forward(p["mixer"], sub, h, return_cache=True)
             x = x + y
             if cfg.mlp != "none":
                 m, _ = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
                 x = x + m
-            return x, {k: v.to(cfg.adt) for k, v in c.items()}
+            return x, c
 
         caches = {}
         pat = cfg.block_pattern

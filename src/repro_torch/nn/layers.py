@@ -1,5 +1,5 @@
 """Core functional layers over nested dicts of tensors (the JAX package's
-``repro.nn.layers`` without the conv helpers).
+``repro.nn.layers``).
 
 Parameters keep the JAX layouts (``dense`` weights are (in, out)); weights
 are cast to the activation dtype at use, as ``.astype(x.dtype)`` does there.
@@ -53,6 +53,40 @@ def layernorm(params, x, eps=1e-5):
     y = (x - mu) * torch.rsqrt(var + eps)
     y = y * params["scale"].float() + params["bias"].float()
     return y.to(dt)
+
+
+def conv1d_depthwise_init(width, channels, *, dtype, device, generator,
+                          stack=None):
+    """Depthwise causal conv used by the Mamba/Griffin front-ends: weights
+    (width, channels), or (stack, width, channels), std 1/sqrt(width)."""
+    shape = (width, channels) if stack is None else (stack, width, channels)
+    return {"w": trunc_normal(shape, 1.0 / math.sqrt(width), dtype, device,
+                              generator)}
+
+
+def conv1d_depthwise(params, x):
+    """x: (B, S, C) causal depthwise conv, left-padded; the taps are summed
+    in the JAX function's order."""
+    w = params["w"].to(x.dtype)  # (K, C)
+    k = w.shape[0]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + pad[:, i:i + x.shape[1], :] * w[i]
+    return out
+
+
+def conv1d_depthwise_step(params, conv_state, x_t):
+    """Single decode step.  conv_state: (B, K-1, C); x_t: (B, C).  Mixed
+    dtypes promote as ``jnp.concatenate``/``einsum`` do (an f32 state with a
+    bf16 token gives f32, the weights rounded to the token's dtype first)."""
+    w = params["w"].to(x_t.dtype)  # (K, C)
+    k = w.shape[0]
+    dt = torch.promote_types(conv_state.dtype, x_t.dtype)
+    window = torch.cat([conv_state.to(dt), x_t[:, None, :].to(dt)], dim=1)
+    out = torch.einsum("bkc,kc->bc", window, w.to(dt))
+    new_state = window[:, 1:, :] if k > 1 else conv_state
+    return new_state, out
 
 
 def gelu(x):

@@ -1,6 +1,7 @@
 """Serving engine of the port: slot-based continuous batching over dense
 (full or ring) per-slot KV caches, the default, or the block-paged KV pool
-(``paged=True``), with bucketed batched prefill and params hot-swap.
+(``paged=True``), with bucketed batched prefill (exact-length prefill on
+recurrent archs) and params hot-swap.
 
 The counterpart of ``repro.serve.engine.ServeEngine``.  Per-slot state
 (current token, position, budget, active flag, caches or page table and
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.transformer import LMConfig, Transformer
+from repro_torch.models.transformer import (LMConfig, Transformer,
+                                            attention_only)
 from repro_torch.serve.paged import PageAllocator, TRASH_PAGE, pages_for
 
 _NOT_PORTED = "not ported yet (ROADMAP.md queue 1, slice 6: checkpoints)"
@@ -79,17 +81,23 @@ def _merge_caches(old, new, fill):
             for key in old}
 
 
-def make_admit_step(cfg: LMConfig, max_len: int, sampler):
+def make_admit_step(cfg: LMConfig, max_len: int, sampler, *, padded=True):
     """Bucketed batched admission on the dense engine: prefill (S, L)
     right-padded prompts and splice the filled slots' state.  Returns the
     new slot state, the first token per slot (from the prefill's own
     last-real-position logits) and the slots already done at admission
-    (``max_new == 1``, or a prompt that reaches the ``max_len - 1`` edge)."""
+    (``max_new == 1``, or a prompt that reaches the ``max_len - 1`` edge).
+
+    ``padded=False`` (recurrent archs) admits exact-length groups: every
+    filled row's prompt spans the whole (S, L) row, so the prefill needs,
+    and recurrent state tolerates, no pad-awareness; ``lengths`` still
+    picks the last logit and sets ``pos``."""
 
     def admit(params, caches, tokens, pos, budget, active,
               prompts, lengths, max_news, fill, generator):
         logits, new_caches = Transformer.prefill(
-            cfg, params, {"tokens": prompts}, max_len, lengths=lengths)
+            cfg, params, {"tokens": prompts}, max_len,
+            lengths=lengths if padded else None)
         rows = torch.arange(prompts.shape[0], device=prompts.device)
         last = logits[rows, (lengths - 1).clamp(min=0).long()]   # (S, V)
         first = sampler(last, generator)                         # (S,)
@@ -238,6 +246,9 @@ class ServeEngine:
         sampler = make_sampler(sample, temperature, top_k)
         self._seed = seed
         self._generator = torch.Generator(device=self.device)
+        # Recurrent blocks need exact-length (unbucketed) prefill: padded
+        # prompts would fold pad tokens into the carried state.
+        self._bucketed = attention_only(cfg)
         self.paged = paged
         if paged:
             self.page_size = page_size
@@ -255,7 +266,8 @@ class ServeEngine:
                 cfg, slots, self.num_pages, page_size, self.pages_per_slot,
                 self.device)
         else:
-            self._admit_fn = make_admit_step(cfg, max_len, sampler)
+            self._admit_fn = make_admit_step(cfg, max_len, sampler,
+                                             padded=self._bucketed)
             self._tick_fn = make_decode_tick(cfg, max_len, sampler)
             self._init_fn = make_init_state(cfg, slots, max_len, self.device)
         self.reset()
@@ -368,10 +380,13 @@ class ServeEngine:
 
     def _admit_group(self, params, group, now, log):
         """One batched dense admission: prompts right-padded to the group's
-        largest length bucket at the full slot batch.  ``params`` is the
+        largest length bucket at the full slot batch (exact length, and
+        length-homogeneous, on the recurrent path).  ``params`` is the
         tick's single params read."""
         s = self.slots
-        length = self._bucket(max(len(r.prompt) for _, r in group))
+        length = max(len(r.prompt) for _, r in group)
+        if self._bucketed:
+            length = self._bucket(length)
         prompts = np.zeros((s, length), np.int32)
         lengths = np.ones((s,), np.int32)
         max_news = np.ones((s,), np.int32)
@@ -517,11 +532,19 @@ class ServeEngine:
             batch.append((free.pop(0), queue.pop(0)))
         if self.paged and batch:
             self._admit_paged(params, batch, now, log)
-        elif batch:
+        elif self._bucketed and batch:
             # One admission per tick at the largest arrival's bucket: the
             # padding is invisible (lengths= masks it), so splitting
             # same-tick arrivals per bucket would only add prefills.
             self._admit_group(params, batch, now, log)
+        elif batch:
+            # Recurrent (exact-length) admission: rows cannot be padded, so
+            # one prefill per exact prompt length, shortest first.
+            groups = {}
+            for slot, req in batch:
+                groups.setdefault(len(req.prompt), []).append((slot, req))
+            for _, group in sorted(groups.items()):
+                self._admit_group(params, group, now, log)
         if any(r is not None for r in self._host_active):
             if self.paged:
                 (self.tokens, self.caches, self.pos, self.budget,

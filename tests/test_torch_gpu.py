@@ -3,12 +3,13 @@ tests/test_torch_*.py`` on a machine with a CUDA card and ``nvcc``.
 
 Every test here needs the card and skips without one.  The file imports no
 JAX (the GPU machine has none): the hand-written ``paged_decode``,
-``swa_decode``, ``kd_stats_fwd``, ``kd_grad_bwd``, ``kd_quant_stats_fwd``
-and ``kd_quant_grad_bwd`` kernels are held against the port's plain
-PyTorch versions (f32 within 1e-5, bf16 within 1e-2), the paged and dense
-engines on the card against the same engines on the CPU (greedy tokens
-equal, f32 with TF32 off), and federated rounds on the card (with and
-without int8 uplink transport) against the same rounds on the CPU.
+``swa_decode``, ``kd_stats_fwd``, ``kd_grad_bwd``, ``kd_quant_stats_fwd``,
+``kd_quant_grad_bwd``, ``ssd`` and ``rglru`` kernels are held against the
+port's plain PyTorch versions (f32 within 1e-5, bf16 within 1e-2; the SSD
+scan within 3e-4), the paged and dense engines on the card against the same
+engines on the CPU (greedy tokens equal, f32 with TF32 off; the recurrent
+archs too), and federated rounds on the card (with and without int8 uplink
+transport) against the same rounds on the CPU.
 """
 
 import os
@@ -25,6 +26,8 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import kd_loss as kd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_decode  # noqa: E402
+from repro_torch.kernels.rglru import rglru  # noqa: E402
+from repro_torch.kernels.ssd import chunk_size, ssd  # noqa: E402
 from repro_torch.kernels.swa_decode import swa_decode  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.serve import ServeEngine, build_stream  # noqa: E402
@@ -156,6 +159,7 @@ SWA_CASES = [
     dict(w=65, n=1, g=16, d=32, pos=[64, 0, 63, 33]),
     dict(w=70, n=2, g=8, d=128, pos=[69, 1, 40, 68], window=33),
     dict(w=40, n=2, g=2, d=256, pos=[39, 12, 0, 27], ring=True),
+    dict(n=1, g=16, d=256, pos=[0, 170, 341, 511], window=2048),  # RG-9B
     dict(w=16, n=2, pos=[-1, 5, 200, 15]),
     dict(w=16, n=2, pos=[-1, 5, 200, 15], ring=True, window=3),
 ]
@@ -587,3 +591,123 @@ def test_int8_federated_round_on_card_matches_cpu_and_runs_the_quant_kernels(
     steps = cfg.kd_epochs * (len(core) // cfg.batch_size)
     assert launches == {"cpu": (0, 0, 0, 0),
                         "cuda": (steps, steps, 0, 0)}
+
+
+# -- the recurrent scans and recurrent serving --------------------------------
+
+# The JAX kernel test's tolerance for its SSD kernel against its reference:
+# the kernel sums q-long dot products in another order than the einsums.
+TOL_SSD = 3e-4
+
+# (b, s, h, p, n, g, chunk): chip_smoke.py's cases (Mamba-2 370m's serving
+# shape at s = 32, 224 (q 112), 151 (q 1) and 2048, SMOKE's p = n = 32),
+# two B/C groups, and a short prime length.
+SSD_CASES = [(4, 32, 32, 64, 128, 1, 128), (4, 224, 32, 64, 128, 1, 128),
+             (4, 151, 32, 64, 128, 1, 128), (4, 2048, 32, 64, 128, 1, 128),
+             (2, 96, 16, 32, 32, 1, 32), (2, 96, 4, 16, 8, 2, 32),
+             (1, 37, 2, 8, 4, 1, 32)]
+
+
+def _ssd_case(device, b, s, h, p, n, g, seed=0):
+    """The JAX kernel test's distributions, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p))
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0)
+    A = -np.exp(rng.standard_normal(h) * 0.3)
+    B = rng.standard_normal((b, s, g, n)) * 0.5
+    C = rng.standard_normal((b, s, g, n)) * 0.5
+    return [torch.from_numpy(a.astype(np.float32)).to(device)
+            for a in (x, dt, A, B, C)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_kernel_matches_ref(cuda, case):
+    *shape, chunk = case
+    args = _ssd_case(cuda, *shape)
+    before = ssd.launches
+    y, state = ops.ssd(*args, chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    wy, ws = ref.ssd_ref(*args, chunk_size(chunk, shape[1]))
+    for got, want in ((y, wy), (state, ws)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=TOL_SSD, atol=TOL_SSD)
+
+
+def test_ssd_kernel_wrapper_checks_inputs(cuda):
+    x, dt, A, B, C = _ssd_case(cuda, 1, 16, 4, 8, 8, 2)
+    with pytest.raises(TypeError):
+        ssd(x.to(torch.bfloat16), dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd(x, dt, A, B, C, 5)
+    with pytest.raises(ValueError, match="groups"):
+        ssd(x[:, :, :3].contiguous(), dt[:, :, :3].contiguous(),
+            A[:3].contiguous(), B, C, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd(x.transpose(2, 3), dt, A, B, C, 16)
+    # A plan over a block's shared memory: the C side's opt-in fails, the
+    # wrapper raises its CUDA error, and the next launch is not affected.
+    big = _ssd_case(cuda, 1, 128, 1, 256, 256, 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd(*big, 128)
+    ssd(x, dt, A, B, C, 16)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 4096), (4, 2048, 4096),
+                                   (2, 128, 130), (1, 384, 128), (3, 17, 5)],
+                         ids=str)
+def test_rglru_kernel_matches_ref(cuda, shape):
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy((1.0 / (1.0 + np.exp(-rng.standard_normal(shape))))
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    before = rglru.launches
+    got = ops.rglru(a, b)
+    torch.cuda.synchronize()
+    assert rglru.launches == before + 1
+    torch.testing.assert_close(got, ref.rglru_ref(a, b), rtol=1e-5, atol=1e-5)
+
+
+def test_rglru_kernel_wrapper_checks_inputs(cuda):
+    a = torch.rand((2, 8, 16), device=cuda)
+    with pytest.raises(TypeError):
+        rglru(a.double(), a.double())
+    with pytest.raises(TypeError):
+        rglru(a.to(torch.bfloat16), a)
+    with pytest.raises(ValueError, match="shape"):
+        rglru(a, a[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru(a.transpose(0, 1), a.transpose(0, 1))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_engine_on_card_matches_cpu_and_runs_the_kernels(cuda, arch):
+    """Greedy tokens on the card equal the CPU's (f32, TF32 off) over
+    exact-length admissions, and every prefill launched the scan kernel once
+    per recurrent layer, every decode tick ``swa_decode`` once per local
+    attention layer."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import count_prefills   # the script's prefill counter
+
+    cfg = registry.get_smoke_config(arch)
+    params = Transformer.init(cfg, 1, device="cpu")
+    reqs = lambda: build_stream("bursty", 6, vocab=cfg.vocab_size, seed=4,  # noqa: E731
+                                prompt_max=40, out_max=8)
+    kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
+             for i in range(cfg.num_layers)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        engine = ServeEngine(cfg, _to(params, device), slots=3, max_len=64,
+                             device=device)
+        prefills = count_prefills(engine)
+        before = (ssd.launches, rglru.launches, swa_decode.launches)
+        outs[device] = {r.rid: r.out for r in engine.run(reqs())}
+        launches = [n - m for n, m in zip(
+            (ssd.launches, rglru.launches, swa_decode.launches), before)]
+    assert outs["cpu"] == outs["cuda"]
+    assert launches == [kinds.count("ssd") * len(prefills),
+                        kinds.count("rglru") * len(prefills),
+                        kinds.count("local") * engine.decode_ticks]
+    assert len(prefills) > 0 and engine.decode_ticks > 0
