@@ -4,15 +4,21 @@
 
 Needs one CUDA card (device 0) and ``nvcc``; builds the port's kernels from
 the sources in this checkout (one ``nvcc`` per source, all started
-together), then:
+together; each prints its kernels' registers and spills), then:
 
 1. device     prints ``nvidia-smi``'s name and power limit and torch's view;
 2. kernel     holds ``paged_decode`` against its plain PyTorch version at the
-              serving shapes (bf16 and f32, with and without a window) and
-              times it (device time, replayed from a CUDA graph) beside the
-              plain version, one library call (``scaled_dot_product_attention``
-              on the gathered dense view, a yardstick the port never calls)
-              and its bytes bound;
+              serving shapes (bf16 and f32, with and without a window), at
+              RecurrentGemma's G=16, D=256 heads and on the long-context
+              table (``registry.for_shape("granite-3-2b", "long_500k")``
+              served --paged: B=1, 32,768 pages of 16, window 8,192, pos
+              524,287; a 1.1 GB pool, past the old kernel's 48 KiB table
+              cap), prints each plan (splits, rows, blocks, shared bytes)
+              and times each (device time, replayed from a CUDA graph)
+              beside the plain version, one library call
+              (``scaled_dot_product_attention`` on the gathered dense view,
+              the window's pages for the long table, a yardstick the port
+              never calls) and its bytes bound;
 3. serve      serves 8 requests on 4 slots with Granite-3-2B at full width in
               bf16 through the paged engine and checks that every decode
               attention went through the kernel (launches == layers x ticks);
@@ -54,8 +60,8 @@ together), then:
               pos 0..511), with a window of 128, on ``--ring``'s 32-slot
               ring at wrapped positions and on the long-context case
               (``registry.for_shape("granite-3-2b", "long_500k")``: window
-              8,192, with a ring cache, B=1, pos 524,287), and times each
-              beside the plain
+              8,192, with a ring cache, B=1, pos 524,287), prints each
+              plan and times each beside the plain
               version, one library call (``scaled_dot_product_attention``
               on the dense cache with a boolean mask, a yardstick the port
               never calls) and its bytes bound;
@@ -224,12 +230,14 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f}s")
 
 
-def _serving_case(dtype, seed=0, copies=1):
-    """Decode-attention inputs at the serving shapes: B = slots, N=8, G=4,
-    D=64 (Granite-3-2B), ps=16, a 512-position table.  Slots 0-2 share two
-    prefix pages; rows end in trash entries; pos is random."""
+def _serving_case(dtype, seed=0, copies=1, heads=(8, 4, 64)):
+    """Decode-attention inputs at the serving shapes: B = slots, ``heads`` =
+    (N, G, D) (Granite-3-2B's by default), ps=16, a 512-position table.
+    Slots 0-2 share two prefix pages; rows end in trash entries; pos is
+    random."""
     rng = np.random.default_rng(seed)
-    b, n, g, d, ps = SLOTS, 8, 4, 64, PAGE
+    b, ps = SLOTS, PAGE
+    n, g, d = heads
     pp = pages_for(MAX_LEN, ps)
     num_pages = b * pp + 1
     pos = rng.integers(0, MAX_LEN, size=b).astype(np.int32)
@@ -254,15 +262,17 @@ def _serving_case(dtype, seed=0, copies=1):
     return sets
 
 
-def _bound(q, pt, pos, itemsize):
+def _bound(q, pt, pos, itemsize, ps=PAGE, window=None):
     """Least time for one call: each attended K/V row of every (slot, head)
-    read once (positions 0..pos), q and the used table entries read, out
-    written; f32 math at the CUDA-core peak.  Counts this call's positions,
-    not the table's capacity."""
+    read once (positions 0..pos, or the window's), q and the used table
+    entries read, out written; f32 math at the CUDA-core peak.  Counts this
+    call's positions, not the table's capacity."""
     b, n, g, d = q.shape
-    rows = pos.cpu().numpy().astype(np.int64) + 1
+    p = pos.cpu().numpy().astype(np.int64)
+    rows = p + 1 if window is None else np.minimum(p + 1, window)
     kv_bytes = int(rows.sum()) * n * d * 2 * itemsize
-    pages = int(-(-rows // PAGE).sum())
+    first = 0 if window is None else np.maximum(p - window + 1, 0) // ps
+    pages = int((p // ps - first + 1).sum())
     io_bytes = 2 * b * n * g * d * itemsize + 4 * (pages + b)
     flops = int(rows.sum()) * n * g * 4 * d
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -270,68 +280,151 @@ def _bound(q, pt, pos, itemsize):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _sdpa_inputs(q, kp, vp, pt, pos):
+def _sdpa_inputs(q, kp, vp, pt, pos, window=None):
     """The gathered dense view for the library yardstick, built outside the
-    timed call: q (B, H, 1, D), K/V (B, H, W, D), a (B, 1, 1, W) mask."""
+    timed call: q (B, H, 1, D), K/V (B, H, W, D), a (B, 1, 1, W) mask.  With
+    a window, only the table's last pages that hold the window (from the
+    first row's page of the lowest window start to the highest pos)."""
     b, n, g, d = q.shape
-    pp, ps = pt.shape[1], kp.shape[1]
-    kd = kp[pt.long()].reshape(b, pp * ps, n, d).permute(0, 2, 1, 3)
-    vd = vp[pt.long()].reshape(b, pp * ps, n, d).permute(0, 2, 1, 3)
+    ps = kp.shape[1]
+    t0, t1 = 0, pt.shape[1]
+    if window is not None:
+        t0 = max(int(pos.min()) - window + 1, 0) // ps
+        t1 = int(pos.max()) // ps + 1
+    pts = pt[:, t0:t1].long()
+    w = (t1 - t0) * ps
+    kd = kp[pts].reshape(b, w, n, d).permute(0, 2, 1, 3)
+    vd = vp[pts].reshape(b, w, n, d).permute(0, 2, 1, 3)
     kd = kd.repeat_interleave(g, dim=1).contiguous()
     vd = vd.repeat_interleave(g, dim=1).contiguous()
-    j = torch.arange(pp * ps, device=q.device)[None, :]
-    valid = j <= pos.long()[:, None]
+    j = t0 * ps + torch.arange(w, device=q.device)[None, :]
+    p = pos.long()[:, None]
+    valid = j <= p
+    if window is not None:
+        valid &= j > p - window
     return q.reshape(b, n * g, 1, d), kd, vd, valid[:, None, None, :]
 
 
+def _plan_line(p):
+    return (f"plan S={p.splits} R={p.rows} chunk={p.chunk} blocks={p.blocks} "
+            f"smem={p.smem} B")
+
+
+def _time_paged(label, sets, window=None, sdpa_copies=4):
+    """Kernel, wrapper, plain and SDPA times and the bound of paged_decode
+    on ``sets`` (bf16); returns (ms, plain_ms, library_ms, bound_ms,
+    bound_by)."""
+    fn = lambda *a: pd_mod.paged_decode(*a, window=window)  # noqa: E731
+    ms = time_ms(fn, sets)
+    wrapper_ms = eager_ms(fn, sets)
+    plain_ms = time_ms(lambda *a: paged_decode_ref(*a, window=window), sets)
+    sdpa_sets = [_sdpa_inputs(*s, window=window) for s in sets[:sdpa_copies]]
+    qs, kd, vd, mask = sdpa_sets[0]
+    lib = F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask)
+    want = paged_decode_ref(*sets[0], window=window).reshape(lib.shape)
+    lib_err = (lib.float() - want.float()).abs().max().item()
+    library_ms = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mm), sdpa_sets)
+    q, kp, _, pt, pos = sets[0]
+    bound_ms, bound_by = _bound(q, pt, pos, 2, kp.shape[1], window)
+    b, n, g, d = q.shape
+    plan = pd_mod.plan(b, n, d, kp.shape[1], pt.shape[1], window, q.dtype)
+    print(f"[kernel] paged_decode {label}: bf16 B={b} N={n} G={g} D={d} "
+          f"ps={kp.shape[1]} PP={pt.shape[1]} window={window} "
+          f"pos={pos.tolist()}; {_plan_line(plan)}: kernel {ms:.5f} ms "
+          f"(eager through the wrapper {wrapper_ms:.5f} ms), plain "
+          f"{plain_ms:.5f} ms, sdpa on the gathered view {library_ms:.5f} ms "
+          f"(err {lib_err:.3g}), bound {bound_ms:.5f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of the bound")
+    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def _check_paged(label, sets, window, dtype):
+    q, kp, vp, pt, pos = sets[0]
+    got = pd_mod.paged_decode(q, kp, vp, pt, pos, window=window)
+    torch.cuda.synchronize()
+    want = paged_decode_ref(q, kp, vp, pt, pos, window=window)
+    check(got.dtype == dtype and got.shape == q.shape,
+          f"paged_decode output {got.dtype} {tuple(got.shape)}")
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    check(math.isfinite(rel) and max(err, rel) <= TOL[dtype],
+          f"paged_decode {label} {dtype} window={window}: max abs err {err},"
+          f" relative {rel}, limit {TOL[dtype]} for both")
+    return err, rel
+
+
+# The long-context paged case: Granite-3-2B at ``long_500k`` as
+# ``registry.for_shape`` gives it (window 8192), served --paged: one slot
+# whose 32,768-page table covers 524,288 positions, decoding the last.
+LONG_PAGED_PP = SHAPES["long_500k"].seq_len // PAGE
+
+
+def _long_paged_case(copies=4, seed=3):
+    """B=1, Granite's heads, a 32,769-page pool (about 1.1 GB of K and V in
+    bf16) shared by ``copies`` random page tables of 32,768 pages (each
+    copy attends other pages, so the timed sets exceed the L2)."""
+    n, g, d = GRANITE_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    num_pages = LONG_PAGED_PP + 1
+    pool = [torch.randn((num_pages, PAGE, n, d), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2)]
+    q = torch.randn((1, n, g, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    pos = torch.tensor([LONG_PAGED_PP * PAGE - 1], dtype=torch.int32,
+                       device="cuda")
+    return [(q, *pool, (torch.randperm(LONG_PAGED_PP, generator=gen,
+                                       device="cuda") + 1)
+             .to(torch.int32)[None], pos) for _ in range(copies)]
+
+
 def phase_kernel():
-    """Returns the kernel-table entry of paged_decode (launches filled in by
-    the serve phase)."""
+    """Returns the kernel-table entry of paged_decode at the serving shape
+    (launches filled in by the serve phase)."""
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for window in (None, 100):
-            q, kp, vp, pt, pos = _serving_case(dtype, seed=1)[0]
-            got = pd_mod.paged_decode(q, kp, vp, pt, pos, window=window)
-            torch.cuda.synchronize()
-            want = paged_decode_ref(q, kp, vp, pt, pos, window=window)
-            err = (got.float() - want.float()).abs().max().item()
-            check(got.dtype == dtype and got.shape == q.shape,
-                  f"paged_decode output {got.dtype} {tuple(got.shape)}")
-            check(math.isfinite(err) and err <= TOL[dtype],
-                  f"paged_decode {dtype} window={window}: max abs err {err} "
-                  f"> {TOL[dtype]}")
-            errs[(dtype, window)] = err
+            sets = _serving_case(dtype, seed=1)
+            errs[(dtype, window)] = _check_paged("serving", sets, window,
+                                                 dtype)[0]
     print("[kernel] paged_decode vs paged_decode_ref, max abs err: " + ", ".join(
         f"{str(dt).split('.')[-1]} window={w}: {e:.3g}"
-        for (dt, w), e in errs.items()) + " (limits f32 1e-5, bf16 1e-2)")
+        for (dt, w), e in errs.items()) + " (limits f32 1e-5, bf16 1e-2, "
+        "absolute and relative)")
 
     # Timing at the main path's type (bf16) and shapes, no window.  16 copies
     # of the 4.2 MB pools (67 MB) exceed the L2, as 40 layers' pools do.
     sets = _serving_case(torch.bfloat16, seed=2, copies=16)
-    ms = time_ms(lambda *a: pd_mod.paged_decode(*a), sets)
-    wrapper_ms = eager_ms(lambda *a: pd_mod.paged_decode(*a), sets)
-    plain_ms = time_ms(lambda *a: paged_decode_ref(*a), sets)
-    sdpa_sets = [_sdpa_inputs(*s) for s in sets[:4]]
-    qs, kd, vd, mask = sdpa_sets[0]
-    lib = F.scaled_dot_product_attention(qs, kd, vd, attn_mask=mask)
-    want = paged_decode_ref(*sets[0]).reshape(lib.shape)
-    lib_err = (lib.float() - want.float()).abs().max().item()
-    library_ms = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
-        qq, kk, vv, attn_mask=mm), sdpa_sets)
-    q, _, _, pt, pos = sets[0]
-    bound_ms, bound_by = _bound(q, pt, pos, 2)
-    print(f"[kernel] paged_decode bf16 B={SLOTS} N=8 G=4 D=64 ps={PAGE} "
-          f"PP={pt.shape[1]} pos={pos.tolist()}: kernel {ms:.5f} ms (eager "
-          f"through the wrapper {wrapper_ms:.5f} ms), plain "
-          f"{plain_ms:.5f} ms, sdpa on the gathered view {library_ms:.5f} ms "
-          f"(err {lib_err:.3g}), bound {bound_ms:.5f} ms ({bound_by}), "
-          f"{bound_ms / ms:.1%} of the bound")
-    return {"name": "paged_decode", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-            "replaces": "src/repro/kernels/swa_decode.py:116",
-            "launches": None, "max_abs_err": errs[(torch.bfloat16, None)],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    ms, plain_ms, library_ms, bound_ms, bound_by = _time_paged(
+        "serving", sets)
+    entry = {"name": "paged_decode", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+             "replaces": "src/repro/kernels/swa_decode.py:116",
+             "launches": None, "max_abs_err": errs[(torch.bfloat16, None)],
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
+    del sets
+
+    # RecurrentGemma's G=16, D=256 heads on the paged pool.
+    rg = (1, 16, 256)
+    for dtype in (torch.float32, torch.bfloat16):
+        err, rel = _check_paged("G=16 D=256", _serving_case(
+            dtype, seed=4, heads=rg), 128, dtype)
+        print(f"[kernel] paged_decode G=16 D=256 {dtype}: relative err "
+              f"{rel:.3g}")
+    _time_paged("G=16 D=256", _serving_case(torch.bfloat16, seed=5, copies=32,
+                                            heads=rg))
+
+    # The long table: past the old kernel's 48 KiB cap (9,888 pages here).
+    sets = _long_paged_case()
+    window = LONG_ATTN.window
+    err, rel = _check_paged("long table", sets, window, torch.bfloat16)
+    print(f"[kernel] paged_decode long table PP={LONG_PAGED_PP}: relative "
+          f"err {rel:.3g} (bf16)")
+    _time_paged(f"long table window {window}", sets, window)
+    del sets
+    torch.cuda.empty_cache()
+    return entry
 
 
 def _serve(cfg, params, reqs, device, **kw):
@@ -1106,9 +1199,11 @@ def phase_swa_kernel(cases=SWA_CASES):
         library_ms = time_ms(lambda qq, kk, vv, mm: F.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mm), sdpa_sets)
         bound_ms, bound_by = _swa_bound(sets[0][0], valid, 2)
+        plan = swa_mod.plan(b, heads[0], heads[2], w, torch.bfloat16)
         print(f"[swa] {label}: B={b} W={w} N={heads[0]} G={heads[1]} "
               f"D={heads[2]} window={window} "
-              f"ring={ring} pos={pos} ({int(valid.sum())} valid slots): "
+              f"ring={ring} pos={pos} ({int(valid.sum())} valid slots); "
+              f"{_plan_line(plan)}: "
               f"relative err f32 {errs[torch.float32][1]:.3g}, bf16 "
               f"{errs[torch.bfloat16][1]:.3g} (limits 1e-5, 1e-2); bf16 "
               f"kernel {ms:.5f} ms (eager through the wrapper "

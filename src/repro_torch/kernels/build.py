@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface under ``build/kernels/`` at
 the repository root, and loaded with ``ctypes``.  The library's name
-carries a hash of the source and flags, so an edited source is rebuilt.
+carries a hash of the source, the headers beside it and the flags, so an
+edited source or header is rebuilt.
 Nothing is built or loaded when this module is imported.
 """
 
@@ -38,15 +39,24 @@ def _nvcc() -> str:
                        "the port's kernels are built from source")
 
 
+def source_tag(name: str, csrc: Path = CSRC) -> str:
+    """The hash in a library's name: ``<name>.cu``, every header under
+    ``csrc`` (a source may include any of them) and the flags, so that an
+    edited source or header is rebuilt."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str, verbose: bool = False) -> Path:
     """Compile ``csrc/<name>.cu`` if this source has not been built yet;
     returns the library's path.  A failed build raises with nvcc's output.
     With ``verbose`` the compiler's resource report (``-Xptxas -v``) is
     printed."""
     source = CSRC / f"{name}.cu"
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}_{tag}.so"
+    lib = BUILD_DIR / f"{name}_{source_tag(name)}.so"
     if lib.exists() and not verbose:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

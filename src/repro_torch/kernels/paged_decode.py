@@ -1,9 +1,11 @@
 """Hand-written Hopper kernel for block-paged decode attention.
 
 ``csrc/paged_decode.cu`` (the counterpart of the TPU kernel
-``repro/kernels/swa_decode.py::paged_decode``) is built at first use by
+``repro/kernels/swa_decode.py::paged_decode``, on the split-K machinery of
+``csrc/decode_attn.cuh``) is built at first use by
 ``repro_torch.kernels.build`` and bound with ``ctypes``.  Nothing is built
-or loaded when this module is imported.
+or loaded when this module is imported.  The page table may have any
+length: a block reads only the ids of the pages it visits.
 """
 
 from __future__ import annotations
@@ -16,8 +18,22 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.swa_decode import (Plan, chunk_rows, scratch,
+                                            smem_bytes, split_plan)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, n: int, d: int, ps: int, pp: int, window, dtype) -> Plan:
+    """The split of a call over a (P, ps, N, D) pool through a (B, PP)
+    table: a slot visits the rows from the first page holding a valid
+    position to pos, at most PP*ps, and with a window at most
+    window + ps - 1; runs are whole pages."""
+    ch = chunk_rows(d)
+    span = pp * ps if window is None else min(pp * ps, window + ps - 1)
+    s, r = split_plan(b * n, span, ch, math.ceil(ch / ps) * ps)
+    return Plan(s, r, ch, b * n * s, smem_bytes(d, dtype.itemsize))
 
 
 def build(verbose: bool = False) -> Path:
@@ -29,8 +45,9 @@ def build(verbose: bool = False) -> Path:
 @functools.lru_cache(maxsize=None)
 def _library():
     fn = _build.load("paged_decode").paged_decode
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,26 +76,19 @@ def _check(q, k_pool, v_pool, pt, pos, window):
     if pt.dim() != 2 or pt.shape[0] != b or pos.shape != (b,):
         raise ValueError(f"pt {tuple(pt.shape)} / pos {tuple(pos.shape)} do "
                          f"not match batch {b}")
-    # At most 16 warps a block: at the kernel's register count a block of
-    # 32 warps does not fit an SM, and its launch fails.
+    # The query groups are the 16 rows of the score MMA.
     if not 1 <= g <= 16 or d % 32 or d > 256:
         raise ValueError(f"kernel needs 1 <= G <= 16 and D a multiple of 32 "
                          f"up to 256, got G={g}, D={d}")
-    ps, pp = k_pool.shape[1], pt.shape[1]
-    smem = 4 * (2 * ps * (d + 1) + g * d + g * ps + pp)
-    if smem > 48 * 1024:
-        raise ValueError(f"page of {ps} rows x {d} with a {pp}-page table "
-                         f"needs {smem} B of shared memory, over the 48 KiB "
-                         f"the kernel asks for")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("pt", pt), ("pos", pos)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned (rows are read "
-                         "with 16-byte loads)")
+    if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("q and the pools must be 16-byte aligned (rows "
+                         "are copied 16 bytes at a time)")
 
 
 def paged_decode(q, k_pool, v_pool, pt, pos, *, window=None):
@@ -87,16 +97,21 @@ def paged_decode(q, k_pool, v_pool, pt, pos, *, window=None):
     q (B, N, G, D) in f32 or bf16; k/v_pool (P, ps, N, D) of q's dtype; pt
     (B, PP) int32 page table; pos (B,) int32 positions, each >= 0.  Returns
     (B, N, G, D) in q's dtype.  Launches on the current stream without
-    synchronising; every launch adds one to ``paged_decode.launches``."""
+    synchronising and never reads pos on the host, so a CUDA graph can
+    capture it; every call adds one to ``paged_decode.launches``."""
     _check(q, k_pool, v_pool, pt, pos, window)
     b, n, g, d = q.shape
+    ps, pp = k_pool.shape[1], pt.shape[1]
+    p = plan(b, n, d, ps, pp, window, q.dtype)
     out = torch.empty_like(q)
-    fn = _library()
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             pt.data_ptr(), pos.data_ptr(), out.data_ptr(),
-             b, n, g, d, k_pool.shape[0], k_pool.shape[1], pt.shape[1],
-             window or 0, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+    part = scratch(p, b, n, g, d, q.device)
+    err = _library()(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
+        pos.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None, b, n, g, d,
+        k_pool.shape[0], ps, pp, window or 0, 1.0 / math.sqrt(d),
+        _DTYPES[q.dtype], p.splits, p.rows,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_decode launch failed: CUDA error {err}")
     paged_decode.launches += 1

@@ -70,7 +70,9 @@ def _case(seed, device, *, b=4, n=2, g=4, d=64, ps=16, pp=5):
                                    dict(n=8, g=4, d=64, ps=16, pp=32),
                                    dict(g=1, ps=64, pp=3),
                                    dict(g=8, d=128, ps=12, pp=7),
-                                   dict(g=16, d=32, ps=8, pp=3)])
+                                   dict(g=16, d=32, ps=8, pp=3),
+                                   dict(n=1, g=16, d=256, ps=16, pp=32),
+                                   dict(g=12, d=192, ps=16, pp=9)])
 def test_kernel_matches_ref(cuda, dtype, window, shape):
     q, kp, vp, pt, pos = _case(3, cuda, **shape)
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
@@ -82,6 +84,27 @@ def test_kernel_matches_ref(cuda, dtype, window, shape):
     assert got.dtype == dtype and got.shape == q.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 512])
+def test_kernel_takes_a_table_past_the_old_cap(cuda, dtype, window):
+    """A 16,384-page table (the old kernel staged the whole table in 48 KiB
+    of shared memory and refused more than 9,888 pages at this shape),
+    cycling over a 600-page pool, at a position near its end."""
+    rng = np.random.default_rng(16)
+    pp, ps, pool = 16_384, 16, 600
+    q, kp, vp = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(cuda, dtype)
+                 for s in ((1, 2, 4, 64), (pool, ps, 2, 64), (pool, ps, 2, 64)))
+    pt = torch.from_numpy((np.arange(pp) % (pool - 1) + 1).astype(np.int32)
+                          )[None].to(cuda)
+    pos = torch.tensor([pp * ps - 5], dtype=torch.int32, device=cuda)
+    got = paged_decode(q, kp, vp, pt, pos, window=window)
+    torch.cuda.synchronize()
+    want = ref.paged_decode_ref(q, kp, vp, pt, pos, window=window)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(want.float().abs().max().item(), 1.0), err
 
 
 def test_kernel_wrapper_checks_inputs(cuda):
@@ -110,6 +133,24 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def test_paged_engine_takes_a_long_table(cuda):
+    """ServeEngine(paged=True) at a max_len whose table (16,384 pages of 8)
+    the old kernel refused (at most 11,104 at SMOKE's D=64, G=2): the
+    greedy tokens equal a short table's."""
+    cfg = registry.get_smoke_config("granite-3-2b")
+    params = _to(Transformer.init(cfg, 1, device="cpu"), "cuda")
+    reqs = lambda: build_stream("bursty", 4, vocab=cfg.vocab_size, seed=5,  # noqa: E731
+                                prompt_max=24, out_max=8)
+    outs = {}
+    for max_len in (64, 131_072):
+        engine = ServeEngine(cfg, params, slots=2, max_len=max_len,
+                             paged=True, page_size=8, num_pages=64,
+                             device="cuda")
+        assert engine.pages_per_slot == max_len // 8
+        outs[max_len] = {r.rid: r.out for r in engine.run(reqs())}
+    assert outs[64] == outs[131_072]
 
 
 def test_engine_on_card_matches_cpu_and_runs_the_kernel(cuda):
@@ -162,6 +203,10 @@ SWA_CASES = [
     dict(n=1, g=16, d=256, pos=[0, 170, 341, 511], window=2048),  # RG-9B
     dict(w=16, n=2, pos=[-1, 5, 200, 15]),
     dict(w=16, n=2, pos=[-1, 5, 200, 15], ring=True, window=3),
+    dict(w=1000, pos=[999, 500, 0, 777]),  # W not a multiple of R = 64
+    dict(w=700, n=2, g=12, d=192, pos=[699, 3, 650, 100], window=300),
+    dict(w=512, n=1, g=16, d=256, pos=[-1, 511, 3000, 200], window=100,
+         ring=True),
 ]
 
 
@@ -180,6 +225,58 @@ def test_swa_kernel_matches_ref(cuda, dtype, case):
     assert got.dtype == dtype and got.shape == q.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype] * max(want.float().abs().max().item(), 1.0), err
+
+
+def _capture(fn):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_wrappers_replay_from_a_cuda_graph(cuda, dtype):
+    """Neither wrapper reads pos on the host: a graph captured once replays
+    each call (split kernel and combine) to the eager result, also after pos
+    and the cache change in place."""
+    q, kc, vc, pos = _swa_case(8, cuda, b=1, w=8192, pos=[524_287])
+    q, kc, vc = q.to(dtype), kc.to(dtype), vc.to(dtype)
+    pq, kp, vp, pt, ppos = _case(9, cuda, n=8, pp=32)
+    pq, kp, vp = pq.to(dtype), kp.to(dtype), vp.to(dtype)
+    calls = [lambda: swa_decode(q, kc, vc, pos, window=8192, ring=True),
+             lambda: paged_decode(pq, kp, vp, pt, ppos)]
+    for fn in calls:
+        fn()  # first calls (and any shared-memory opt-in) outside capture
+    torch.cuda.synchronize()
+    graphs = [_capture(fn) for fn in calls]
+    for step in range(2):
+        if step:
+            pos.add_(1000)
+            ppos.copy_(torch.tensor([3, 511, 77, 200], dtype=torch.int32))
+            kc.mul_(0.5)
+            vp.add_(1.0)
+        for (graph, out), fn in zip(graphs, calls):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, fn())
+
+
+def test_plan_shared_memory_matches_the_kernels(cuda):
+    """The wrappers' plans ask for exactly the shared memory the compiled
+    kernels lay out (decode_attn_smem_bytes of csrc/decode_attn.cuh)."""
+    import ctypes
+
+    from repro_torch.kernels import build, paged_decode as pd_mod
+    from repro_torch.kernels import swa_decode as swa_mod
+
+    for name in ("swa_decode", "paged_decode"):
+        fn = build.load(name).decode_attn_smem_bytes
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        for d in range(32, 257, 32):
+            for dtype, bf16 in ((torch.float32, 0), (torch.bfloat16, 1)):
+                want = fn(d, bf16)
+                assert swa_mod.plan(4, 8, d, 512, dtype).smem == want
+                assert pd_mod.plan(4, 8, d, 16, 32, None, dtype).smem == want
 
 
 def test_swa_kernel_takes_a_scalar_pos(cuda):
