@@ -75,16 +75,19 @@ together; each prints its kernels' registers and spills), then:
               the card's dense engine against its paged one; one hot-swap
               to a second weight set at a fixed tick, card vs CPU: greedy
               tokens must be equal;
-16. ssd kernel    holds ``ssd`` against its plain version (f32, TF32 off)
-              at Mamba-2 370m's serving shape (4 slots x 32 heads, p=64,
-              n=128, one B/C group) at s = 32, 224 (chunk 112), 151 (chunk
-              1) and 2048 (16 chunks of 128) and at SMOKE's p = n = 32,
-              chunk 32, s = 96, and times each beside the plain version and
-              its f32-operations bound;
+16. ssd kernel    holds ``ssd`` against its plain version (f32, TF32 off; both also
+              against the plain version in f64) at Mamba-2 370m's serving
+              shape (4 slots x 32 heads, p=64, n=128, one B/C group) at s =
+              32, 224 (chunk 112), 151 (chunk 1, the row kernel) and 2048
+              (16 chunks of 128) and at SMOKE's p = n = 32, chunk 32, s =
+              96, prints each plan and times each beside the plain version
+              and two bounds: f32 operations on CUDA cores, and the
+              precision the kernel uses (3xTF32 on tensor cores for the
+              chunk kernel, f32 for the row kernel);
 17. rglru kernel  holds ``rglru`` against its plain version at (4, 224,
-              4096), (4, 32, 4096), (4, 2048, 4096), (2, 128, 130) and (1,
-              384, 128) and times each beside the plain version and its
-              bytes bound;
+              4096), (4, 32, 4096), (4, 2048, 4096), (1, 224, 4096) (one
+              slot), (2, 128, 130) and (1, 384, 128) and times each beside
+              the plain version and its bytes bound;
 18. swa recurrentgemma   holds ``swa_decode`` against its plain version at
               RecurrentGemma-9B's local attention (B=4, W=512, N=1, G=16,
               D=256, window 2048; f32 and bf16) and times it;
@@ -107,6 +110,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -150,9 +154,10 @@ from repro_torch.serve.paged import pages_for  # noqa: E402
 from repro_torch.transport import parse_codec  # noqa: E402
 from repro_torch.transport.method import PAYLOAD_KEY  # noqa: E402
 
-# H100 SXM data-sheet peaks: HBM3 bandwidth and dense FP32 rate.
+# H100 SXM data-sheet peaks: HBM3 bandwidth, dense FP32 and TF32 rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 SLOTS, MAX_LEN, PAGE = 4, 512, 16
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -1355,10 +1360,12 @@ SSD_CASES = (
 )
 # (label, B, S, D): RecurrentGemma-9B's d_rnn at the stream's longest prompt
 # (the main path's shape in the kernel table), its shortest and 2,048
-# tokens; the JAX tests' D = 130 and their long-carry case.
+# tokens, one slot (a lone arrival); the JAX tests' D = 130 and their
+# long-carry case.
 RGLRU_CASES = (
     ("serve S=224", SLOTS, 224, 4096), ("serve S=32", SLOTS, 32, 4096),
-    ("serve S=2048", SLOTS, 2048, 4096), ("D=130", 2, 128, 130),
+    ("serve S=2048", SLOTS, 2048, 4096), ("one slot S=224", 1, 224, 4096),
+    ("D=130", 2, 128, 130),
     ("long carry", 1, 384, 128),
 )
 L2_BYTES = 50 * 2 ** 20
@@ -1380,17 +1387,32 @@ def _ssd_inputs(b, s, h, p, n, g, seed=0, copies=1):
 
 
 def _ssd_bound(b, s, h, p, n, g, q):
-    """Least time for one call: b h (s/q) (q (q + 1) (n + p) + 4 q n p) f32
-    operations at the CUDA-core peak (the reference is f32), against x, dt,
-    A, B, C read once and y, the state written once.  The scores and the
-    diagonal block's y count their causal half only (j <= i, the terms the
-    function needs); the carried state's y and the state update are dense."""
-    flops = b * h * (s // q) * (q * (q + 1) * (n + p) + 4 * q * n * p)
+    """Least times for one call, (f32 ms, tensor-core ms): the operations at
+    the CUDA-core f32 peak (the reference is f32), and the same operations
+    three times over (3xTF32) at the dense TF32 tensor-core peak; each
+    against x, dt, A, B, C read once and y, the state written once,
+    whichever is larger.  A chunk's scores C B^T belong to a B/C group, not
+    a head: b g (s/q) q (q + 1) n operations, their causal half (j <= i, the
+    terms the function needs).  Per head come the diagonal block's y (its
+    causal half, q (q + 1) p), the carried state's y and the state update
+    (dense, 2 q n p each): b h (s/q) (q (q + 1) p + 4 q n p)."""
+    flops = (b * g * (s // q) * q * (q + 1) * n
+             + b * h * (s // q) * (q * (q + 1) * p + 4 * q * n * p))
     bytes_ = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
                   + b * h * p * n)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return tuple((max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+                  else "operations")
+                 for t_ops in (flops / F32_FLOPS * 1e3,
+                               3 * flops / TF32_FLOPS * 1e3))
+
+
+def _ssd_smem_bytes(q, p, n):
+    """The dynamic shared bytes a block of the call's kernel asks for, as
+    the library computes them (``ssd_smem_bytes`` of ``csrc/ssd.cu``)."""
+    fn = kbuild.load("ssd").ssd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn(q, p, n)
 
 
 def phase_ssd_kernel():
@@ -1400,11 +1422,21 @@ def phase_ssd_kernel():
     entry = None
     for label, b, s, h, p, n, g, chunk in SSD_CASES:
         q = ssd_mod.chunk_size(chunk, s)
+        # The C side's choice: the row kernel (p tiles of 64) at chunk 1,
+        # else the chunk kernel (p tiles of 32 at p <= 32, else 64).
+        kind = "row" if q == 1 else "chunk"
+        tile = 32 if kind == "chunk" and p <= 32 else 64
         args = _ssd_inputs(b, s, h, p, n, g, seed=1)[0]
         y, state = ssd_mod.ssd(*args, q)
         torch.cuda.synchronize()
         wy, ws = kref.ssd_ref(*args, q)
-        errs = []
+        # Kernel and plain version against the same scan in f64.
+        ey, es = kref.ssd_ref(*(a.double() for a in args), q)
+        f64 = [((got.double() - ref).abs().max().item(),
+                (plain.double() - ref).abs().max().item())
+               for got, plain, ref in ((y, wy, ey), (state, ws, es))]
+        del ey, es
+        errs, tops = [], []
         for got, want, what in ((y, wy, "y"), (state, ws, "state")):
             check(got.shape == want.shape and got.dtype == torch.float32,
                   f"ssd {label} {what}: {tuple(got.shape)} {got.dtype}")
@@ -1414,18 +1446,32 @@ def phase_ssd_kernel():
                   f"ssd {label} {what}: max abs err {diff.max().item()} "
                   f"outside {TOL_SSD} abs + {TOL_SSD} rel")
             errs.append(diff.max().item())
+            tops.append(want.abs().max().item())
         per_set = 4 * (2 * b * s * h * p + 2 * b * s * g * n)
         sets = _ssd_inputs(b, s, h, p, n, g, seed=2,
                            copies=max(1, -(-L2_BYTES // per_set)))
         ms = time_ms(lambda *a: ssd_mod.ssd(*a, q), sets, reps=5)
         plain_ms = time_ms(lambda *a: kref.ssd_ref(*a, q), sets, reps=5)
-        bound_ms, bound_by = _ssd_bound(b, s, h, p, n, g, q)
+        (f32_ms, f32_by), (tc_ms, tc_by) = _ssd_bound(b, s, h, p, n, g, q)
+        # The bound at the precision the kernel runs: 3xTF32 on tensor
+        # cores (chunk kernel) or f32 FMAs on CUDA cores (row kernel).
+        bound_ms, bound_by = (tc_ms, tc_by) if kind == "chunk" else (
+            f32_ms, f32_by)
         print(f"[ssd] {label}: b={b} s={s} h={h} p={p} n={n} g={g} chunk "
-              f"{q}: max abs err y {errs[0]:.3g}, state {errs[1]:.3g} "
-              f"(limit {TOL_SSD} abs + {TOL_SSD} rel); kernel {ms:.5f} ms, "
-              f"plain {plain_ms:.5f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}), {bound_ms / ms:.1%} of the bound; library: "
-              f"none (no PyTorch call computes the SSD scan)")
+              f"{q}: {kind} kernel, p tile {tile}, {b * h * -(-p // tile)} "
+              f"blocks, {_ssd_smem_bytes(q, p, n)} B shared; max abs err y {errs[0]:.3g} "
+              f"(largest |y| {tops[0]:.3g}), state {errs[1]:.3g} (largest "
+              f"|state| {tops[1]:.3g}) (limit {TOL_SSD} abs + {TOL_SSD} "
+              f"rel); against f64: kernel y {f64[0][0]:.3g}, state "
+              f"{f64[1][0]:.3g}, plain f32 y {f64[0][1]:.3g}, state "
+              f"{f64[1][1]:.3g}; "
+              f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms; bounds: f32 "
+              f"CUDA cores {f32_ms:.5f} ms ({f32_by}, {f32_ms / ms:.1%}), "
+              f"3xTF32 tensor cores {tc_ms:.5f} ms ({tc_by}, "
+              f"{tc_ms / ms:.1%}); the kernel's precision: "
+              f"{'3xTF32' if kind == 'chunk' else 'f32'}, "
+              f"{bound_ms / ms:.1%} of its bound; library: none (no PyTorch "
+              f"call computes the SSD scan)")
         if entry is None:
             entry = {"name": "ssd", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/ssd.cu",

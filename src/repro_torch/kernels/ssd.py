@@ -3,7 +3,9 @@
 ``csrc/ssd.cu`` (the counterpart of the TPU kernel
 ``repro/kernels/ssd.py::ssd_pallas``) is built at first use by
 ``repro_torch.kernels.build`` and bound with ``ctypes``.  Nothing is built
-or loaded when this module is imported.
+or loaded when this module is imported.  The C side picks the kernel (the
+row kernel at chunk 1, else the chunk kernel) and its shared memory
+(``ssd_smem_bytes``) from the shapes.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from repro_torch.kernels import build as _build
 
 MAX_CHUNK = 128
+MAX_STATE = 256  # d_state (n) the kernels take
 
 
 def chunk_size(chunk, s):
@@ -66,6 +69,8 @@ def _check(x, dt, A, B, C, chunk):
     if not 1 <= chunk <= MAX_CHUNK or s % chunk:
         raise ValueError(f"chunk {chunk} must divide s={s} and lie in "
                          f"[1, {MAX_CHUNK}]")
+    if not 1 <= B.shape[3] <= MAX_STATE:
+        raise ValueError(f"d_state {B.shape[3]} outside [1, {MAX_STATE}]")
 
 
 def ssd(x, dt, A, B, C, chunk):
@@ -73,11 +78,12 @@ def ssd(x, dt, A, B, C, chunk):
 
     x (b, s, h, p), dt (b, s, h), A (h,), B and C (b, s, g, n): float32,
     contiguous, on one CUDA device; head ``hd`` reads B/C group
-    ``hd // (h // g)``.  ``chunk`` must divide s (``chunk_size`` gives the
-    JAX rule's chunk).  Returns (y (b, s, h, p), final state (b, h, p, n)),
-    float32.  A chunk whose shared-memory plan does not fit a block raises
-    the CUDA error of opting into it.  Launches on the current stream
-    without synchronising; every launch adds one to ``ssd.launches``."""
+    ``hd // (h // g)``; n at most 256.  ``chunk`` must divide s
+    (``chunk_size`` gives the JAX rule's chunk).  Returns (y (b, s, h, p),
+    final state (b, h, p, n)), float32.  A call whose shared memory does not
+    fit a block raises the CUDA error of opting into it.  Launches on the
+    current stream without synchronising; every launch adds one to
+    ``ssd.launches``."""
     _check(x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]

@@ -698,11 +698,18 @@ TOL_SSD = 3e-4
 
 # (b, s, h, p, n, g, chunk): chip_smoke.py's cases (Mamba-2 370m's serving
 # shape at s = 32, 224 (q 112), 151 (q 1) and 2048, SMOKE's p = n = 32),
-# two B/C groups, and a short prime length.
+# two B/C groups, and a short prime length; Mamba-2's heads at one slot
+# (chunk 112 and chunk 1); ragged tiles: p = 24 (one p tile of 32), p = 72
+# (two tiles of 64) with n = 10 (a ragged k step, 4-byte copies) at q = 37,
+# and the row kernel at p = 24, n = 10; p = n = 256 at chunk 64 (the
+# largest state a chunk kernel takes).
 SSD_CASES = [(4, 32, 32, 64, 128, 1, 128), (4, 224, 32, 64, 128, 1, 128),
              (4, 151, 32, 64, 128, 1, 128), (4, 2048, 32, 64, 128, 1, 128),
              (2, 96, 16, 32, 32, 1, 32), (2, 96, 4, 16, 8, 2, 32),
-             (1, 37, 2, 8, 4, 1, 32)]
+             (1, 37, 2, 8, 4, 1, 32), (1, 224, 32, 64, 128, 1, 128),
+             (1, 151, 32, 64, 128, 1, 128), (2, 80, 4, 24, 32, 1, 40),
+             (2, 74, 2, 72, 10, 1, 37), (1, 37, 2, 24, 10, 1, 32),
+             (1, 128, 1, 256, 256, 1, 64)]
 
 
 def _ssd_case(device, b, s, h, p, n, g, seed=0):
@@ -750,10 +757,88 @@ def test_ssd_kernel_wrapper_checks_inputs(cuda):
         ssd(*big, 128)
     ssd(x, dt, A, B, C, 16)
     torch.cuda.synchronize()
+    # A state wider than the kernels' registers and rows take.
+    wide = _ssd_case(cuda, 1, 16, 1, 8, 264, 1)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd(*wide, 16)
+
+
+def test_ssd_tf32_fragments_and_denormals(cuda):
+    """The chunk kernel's 3xTF32 MMA fragments (``ssd_tf32_probe`` of
+    csrc/ssd.cu, which the wrapper does not bind) give an f32-accurate
+    16x8x8 product; a denormal TF32 product comes out exact or flushed to
+    0, and either way moves a sum by less than 2^-126 (far inside TOL_SSD).
+    Prints which, and the 3xTF32 product's error (``pytest -rP``)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    fn = build.load("ssd").ssd_tf32_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def tf32_probe(a, b, split3=True):
+        d = torch.empty((16, 8), dtype=torch.float32, device=cuda)
+        assert fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), int(split3),
+                  torch.cuda.current_stream(cuda).cuda_stream) == 0
+        return d
+
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn((16, 8), generator=gen)
+    b = torch.randn((8, 8), generator=gen)
+    got = tf32_probe(a.to(cuda), b.to(cuda)).double().cpu()
+    want = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    rel = ((got - want).abs() / scale).max().item()
+    assert rel < 1e-6
+    one = tf32_probe(a.to(cuda), b.to(cuda), split3=False).double().cpu()
+    assert ((one - want).abs() / scale).max().item() > 1e-5  # TF32 alone
+    tiny = torch.zeros((16, 8))
+    tiny[0, 0] = 2.0 ** -130
+    d = tf32_probe(tiny.to(cuda), torch.eye(8).to(cuda), split3=False)
+    out = d[0, 0].item()
+    assert out in (0.0, 2.0 ** -130)
+    assert torch.count_nonzero(d[1:]).item() == 0
+    print(f"3xTF32 16x8x8 product within {rel:.3g} of f64 (relative to sum "
+          f"|a||b|); 2^-130 x 1 in TF32 gives {out!r}: denormal inputs "
+          f"{'kept' if out else 'flushed'} on {torch.cuda.get_device_name(cuda)}")
+
+
+def test_scan_wrappers_replay_from_a_cuda_graph(cuda):
+    """Neither scan wrapper synchronises or keeps state: a graph captured
+    once replays the chunk kernel, the row kernel and rglru to the eager
+    result, also after the inputs change in place."""
+    chunk_args = _ssd_case(cuda, 2, 224, 4, 64, 128, 1, seed=3)
+    row_args = _ssd_case(cuda, 2, 151, 4, 64, 128, 1, seed=4)
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.uniform(0.1, 0.99, (2, 224, 4096))
+                         .astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((2, 224, 4096))
+                         .astype(np.float32)).to(cuda)
+    calls = [lambda: ssd(*chunk_args, 112), lambda: ssd(*row_args, 1),
+             lambda: rglru(a, b)]
+    for fn in calls:
+        fn()  # first calls (and any shared-memory opt-in) outside capture
+    torch.cuda.synchronize()
+    graphs = [_capture(fn) for fn in calls]
+    for step in range(2):
+        if step:
+            for t in (*chunk_args, *row_args, b):
+                t.mul_(0.5)
+            a.sqrt_()
+        for (graph, out), fn in zip(graphs, calls):
+            graph.replay()
+            torch.cuda.synchronize()
+            want = fn()
+            if isinstance(out, tuple):
+                assert all(torch.equal(o, w) for o, w in zip(out, want))
+            else:
+                assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("shape", [(4, 32, 4096), (4, 2048, 4096),
-                                   (2, 128, 130), (1, 384, 128), (3, 17, 5)],
+                                   (2, 128, 130), (1, 384, 128), (3, 17, 5),
+                                   (1, 224, 4096), (2, 300, 4099)],
                          ids=str)
 def test_rglru_kernel_matches_ref(cuda, shape):
     rng = np.random.default_rng(1)
