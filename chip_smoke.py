@@ -28,8 +28,10 @@ together; each prints its kernels' registers and spills), then:
               loss and gradient against their plain versions at the FL main
               path's shape (128 rows, 100 classes) and at an LLM shape (512
               rows, Granite's 49,155-token vocabulary ending in -1e30 pad
-              columns, f32 and bf16) and times them beside the plain
-              versions and their bounds;
+              columns, f32 and bf16), printing each forward plan; times the
+              forward's two paths across ``WARP_MAX_V`` (V 512-8,192 at 128
+              and 512 rows) and the pair beside the plain versions and
+              their bounds;
 6. fl         runs Algorithm 1 (``FederatedKD.run``) with ResNet-32 at full
               width on CIFAR-shaped data (1 core + 3 edge silos of ~2,500
               images), for kd, bkd and one bkd round with R=2 teachers, and
@@ -43,7 +45,8 @@ together; each prints its kernels' registers and spills), then:
               ``kd_quant_grad_bwd`` and ``ops.kd_loss_quant``'s loss and
               gradient against their plain versions (teacher payloads from
               the port's int8 and int4 codecs) at the FL main path's shape
-              and at the LLM shape, and times them beside the plain
+              and at the LLM shape, printing each forward plan, with phase
+              5's path sweep (f32), and times them beside the plain
               versions and their bounds;
 10. fl transport   runs phase 6's ResNet-32 federation with uplink transport
               (bkd@int8, kd@int4, one bkd@int8 round with R=2 teachers) and
@@ -564,6 +567,35 @@ def _rel_err(got, want):
             / want.float().abs().max()).item()
 
 
+def _kd_plan_line(p):
+    return (f"plan {p.path} rows/block={p.rows_per_block} tile={p.tile} "
+            f"blocks={p.blocks}")
+
+
+# The forward's path sweep: both paths on either side of WARP_MAX_V, at the
+# FL main path's rows and the LLM shape's, with buffer.
+SWEEP_V = (512, 1024, 2048, 4096, 8192)
+SWEEP_ROWS = (128, 512)
+
+
+def _fwd_sweep(tag, fwd, make_sets, dtypes):
+    """Times ``fwd`` (a forward wrapper) on the warp and the block path
+    across the threshold; ``make_sets(rows, v, dtype)`` gives its argument
+    sets."""
+    for dtype in dtypes:
+        name = str(dtype).split('.')[-1]
+        for rows in SWEEP_ROWS:
+            for v in SWEEP_V:
+                sets = make_sets(rows, v, dtype)
+                ms = {path: time_ms(
+                    lambda *a, path=path: fwd(*a, TAU, path=path), sets)
+                      for path in ("warp", "block")}
+                print(f"[{tag}] sweep rows={rows} V={v} {name} buffer=True: "
+                      f"warp {ms['warp']:.5f} ms, block {ms['block']:.5f} ms"
+                      f" (plan: {kd_mod.plan(rows, v).path}; WARP_MAX_V="
+                      f"{kd_mod.WARP_MAX_V})")
+
+
 def _check_kd(rows, v, dtype, buffer, pad, seed):
     """Kernels against plain versions; ops.kd_loss's loss and autograd
     gradient against the plain path.  Returns the max abs errors of
@@ -591,7 +623,8 @@ def _check_kd(rows, v, dtype, buffer, pad, seed):
               f"kd {what} {name}: relative err {e} > {tol}")
     check(stats.shape == (rows, kd_mod.N_STATS) and ds.dtype == dtype,
           f"kd outputs {tuple(stats.shape)} {ds.dtype}")
-    print(f"[kd] {name}: relative err stats {errs['stats']:.3g}, ds "
+    print(f"[kd] {name}: {_kd_plan_line(kd_mod.plan(rows, v))}"
+          f"; relative err stats {errs['stats']:.3g}, ds "
           f"{errs['ds']:.3g}, loss {errs['loss']:.3g}, autograd grad "
           f"{errs['grad']:.3g} (limit {tol})")
     return ((stats - want).abs().max().item(),
@@ -657,6 +690,10 @@ def phase_kd_kernels():
                                   buffer=buffer, pad=0, seed=1))
     for dtype in (torch.float32, torch.bfloat16):
         _check_kd(**KD_LLM, dtype=dtype, buffer=True, seed=2)
+    _fwd_sweep("kd", kd_mod.kd_stats_fwd,
+               lambda rows, v, dtype: [a[:4] for a in _kd_inputs(
+                   rows, v, dtype, True, seed=5, copies=4)],
+               (torch.float32, torch.bfloat16))
     return _time_pair("kd", ("kd_stats_fwd", "kd_grad_bwd"),
                       ("src/repro/kernels/kd_loss.py:244",
                        "src/repro/kernels/kd_loss.py:271"),
@@ -894,7 +931,9 @@ def _check_kdq(rows, v, dtype, buffer, bits, seed):
               f"kdq {what} {name}: relative err {e} > {tol}")
     check(stats.shape == (rows, kd_mod.N_STATS) and ds.dtype == dtype,
           f"kdq outputs {tuple(stats.shape)} {ds.dtype}")
-    print(f"[kdq] {name}: relative err stats {errs['stats']:.3g}, ds "
+    print(f"[kdq] {name}: "
+          f"{_kd_plan_line(kd_mod.plan(rows, v))}"
+          f"; relative err stats {errs['stats']:.3g}, ds "
           f"{errs['ds']:.3g}, loss {errs['loss']:.3g}, autograd grad "
           f"{errs['grad']:.3g} (limit {tol}; the kernels dequantize with "
           f"one FMA, the plain version rounds twice)")
@@ -932,6 +971,10 @@ def phase_kdq_kernels():
                                        buffer=buffer, bits=bits, seed=1))
     for dtype in (torch.float32, torch.bfloat16):
         _check_kdq(KD_LLM["rows"], KD_LLM["v"], dtype, True, 8, seed=2)
+    _fwd_sweep("kdq", kd_mod.kd_quant_stats_fwd,
+               lambda rows, v, dtype: [a[:6] for a in _kdq_inputs(
+                   rows, v, dtype, True, 8, seed=5, copies=4)],
+               (torch.float32,))
     return _time_pair("kdq", ("kd_quant_stats_fwd", "kd_quant_grad_bwd"),
                       ("src/repro/kernels/kd_loss.py:298",
                        "src/repro/kernels/kd_loss.py:331"),

@@ -39,6 +39,11 @@ def _nvcc() -> str:
                        "the port's kernels are built from source")
 
 
+def toolkit_bin(tool: str) -> str:
+    """A CUDA toolkit program beside ``nvcc`` (``cuobjdump``, ...)."""
+    return str(Path(_nvcc()).parent / tool)
+
+
 def source_tag(name: str, csrc: Path = CSRC) -> str:
     """The hash in a library's name: ``<name>.cu``, every header under
     ``csrc`` (a source may include any of them) and the flags, so that an

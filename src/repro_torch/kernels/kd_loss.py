@@ -8,8 +8,10 @@ those stats), and of their quant variants ``::kd_quant_stats_fwd`` and
 (int8 codes and a per-row f32 scale and zero) and dequantize it in
 registers.  It is built at first use by ``repro_torch.kernels.build`` and
 bound with ``ctypes``; nothing is built or loaded when this module is
-imported.  ``assemble_loss`` turns the stats into the per-row loss, as in
-the JAX package.
+imported.  The forward pair runs one of two paths, planned from the shapes
+alone (:func:`plan`: a warp a row up to ``WARP_MAX_V`` columns, a block a
+row above), so a CUDA graph replays the wrappers.  ``assemble_loss`` turns
+the stats into the per-row loss, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +28,48 @@ from repro_torch.kernels import build as _build
 N_STATS = 11  # [lse_s, s_y, lse_st, lse_tt, E_t[t/tau], E_t[s/tau], lse_bt, E_b[b/tau], E_b[s/tau], 0, 0]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COLS_PER_BLOCK = 1024  # the backward's column chunk (256 threads x 4)
+
+# The forward's plan (``csrc/kd_loss.cu``).  Up to WARP_MAX_V columns a row
+# takes one warp, WARP_ROWS rows a block; above, one block of BLOCK_WARPS
+# warps, each streaming chunks of CHUNK columns through its own ring of
+# shared-memory stages (their count and bytes are the C side's).
+WARP_MAX_V = 1024
+WARP_ROWS = 4  # kWarpRows
+BLOCK_WARPS = 8
+_BLOCK_TILE = 16  # kTile
+CHUNK = 32 * _BLOCK_TILE  # a warp's chunk: 32 lanes x a tile of 16 columns
+_WARP_TILE_MAX = 8
+
+
+class Plan(NamedTuple):
+    """How a forward call runs: ``path`` "warp" (a warp a row,
+    ``rows_per_block`` rows a block, lane l holding columns l + 32 k for k
+    < ``tile`` each pass) or "block" (a block a row, warp w streaming
+    chunks w, w + 8, ... of CHUNK columns, lane l holding columns l + 32 j
+    for j < ``tile`` of each); ``blocks`` in the grid."""
+    path: str
+    rows_per_block: int
+    tile: int
+    blocks: int
+
+
+def plan(rows: int, v: int, path: str | None = None) -> Plan:
+    """The forward's plan for (rows, V) logits, from the shapes alone: the
+    same for both dtypes, with or without a buffer and for the quant pair.
+    ``path`` forces one path (for timing both across ``WARP_MAX_V``)."""
+    path = path or ("warp" if v <= WARP_MAX_V else "block")
+    if path == "warp":
+        tile = 1
+        while tile < min(_WARP_TILE_MAX, _ceil(v, 32)):
+            tile *= 2
+        return Plan("warp", WARP_ROWS, tile, _ceil(rows, WARP_ROWS))
+    if path != "block":
+        raise ValueError(f"path must be 'warp' or 'block', got {path!r}")
+    return Plan("block", 1, _BLOCK_TILE, rows)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def build(verbose: bool = False) -> Path:
@@ -37,11 +82,13 @@ def build(verbose: bool = False) -> Path:
 def _library():
     lib = _build.load("kd_loss")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.kd_stats_fwd.argtypes = [ptr] * 5 + [i32, i32, f32, i32, ptr]
+    lib.kd_stats_fwd.argtypes = [ptr] * 5 + [i32, i32, f32, i32, i32, i32,
+                                             ptr]
     lib.kd_stats_fwd.restype = i32
     lib.kd_grad_bwd.argtypes = [ptr] * 7 + [i32, i32, f32, f32, f32, i32, ptr]
     lib.kd_grad_bwd.restype = i32
-    lib.kd_quant_stats_fwd.argtypes = [ptr] * 7 + [i32, i32, f32, i32, ptr]
+    lib.kd_quant_stats_fwd.argtypes = [ptr] * 7 + [i32, i32, f32, i32, i32,
+                                                   i32, ptr]
     lib.kd_quant_stats_fwd.restype = i32
     lib.kd_quant_grad_bwd.argtypes = [ptr] * 9 + [i32, i32, f32, f32, f32,
                                                   i32, ptr]
@@ -121,19 +168,34 @@ def _check_grad_inputs(s, g, stats):
                              f"{tuple(x.shape)} on {x.device}")
 
 
-def kd_stats_fwd(labels, s, t, b, tau):
+def check_tau(tau, name):
+    """Refuses tau <= 0: the kernels share one max between s and s/tau,
+    exact only for tau > 0 (``ops`` checks it on both devices)."""
+    if not float(tau) > 0:
+        raise ValueError(f"{name} needs tau > 0, got {tau}")
+
+
+def _plan_args(p: Plan):
+    return (0 if p.path == "warp" else 1, p.tile)
+
+
+def kd_stats_fwd(labels, s, t, b, tau, path=None):
     """Per-row stats (rows, 11) f32 of student ``s``, teacher ``t`` and
     buffer ``b`` logits (rows, V), f32 or bf16 of one dtype, ``b`` None for
     plain KD; labels (rows,) int64, each in [0, V) (``ops.kd_loss`` checks
-    the range on the device).  Launches on the current stream without
-    synchronising; every launch adds one to ``kd_stats_fwd.launches``."""
+    the range on the device); tau > 0.  Runs :func:`plan`'s plan; ``path``
+    forces one path (for timing both across the threshold).  Launches on
+    the current stream without synchronising; every launch adds one to
+    ``kd_stats_fwd.launches``."""
     _check(labels, s, t, b, "kd_stats_fwd")
+    check_tau(tau, "kd_stats_fwd")
     rows, v = s.shape
+    p = plan(rows, v, path)
     stats = torch.empty((rows, N_STATS), dtype=torch.float32, device=s.device)
     err = _library().kd_stats_fwd(
         labels.data_ptr(), s.data_ptr(), t.data_ptr(),
         b.data_ptr() if b is not None else None, stats.data_ptr(), rows, v,
-        1.0 / float(tau), _DTYPES[s.dtype],
+        1.0 / float(tau), _DTYPES[s.dtype], *_plan_args(p),
         torch.cuda.current_stream(s.device).cuda_stream)
     if err:
         raise RuntimeError(f"kd_stats_fwd launch failed: CUDA error {err}")
@@ -160,20 +222,23 @@ def kd_grad_bwd(labels, g, stats, s, t, b, tau, mean_scale):
     return ds
 
 
-def kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau):
+def kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau, path=None):
     """The stats of :func:`kd_stats_fwd` with the teacher given as a
     payload: ``codes`` (rows, V) int8, ``scale`` and ``zero`` (rows,) f32,
     teacher = codes * scale[:, None] + zero[:, None], dequantized in the
-    kernel.  Every launch adds one to ``kd_quant_stats_fwd.launches``."""
+    kernel; ``path`` as in :func:`kd_stats_fwd`.  Every launch adds one
+    to ``kd_quant_stats_fwd.launches``."""
     _check(labels, s, None, b, "kd_quant_stats_fwd")
     _check_payload(s, codes, scale, zero)
+    check_tau(tau, "kd_quant_stats_fwd")
     rows, v = s.shape
+    p = plan(rows, v, path)
     stats = torch.empty((rows, N_STATS), dtype=torch.float32, device=s.device)
     err = _library().kd_quant_stats_fwd(
         labels.data_ptr(), s.data_ptr(), codes.data_ptr(), scale.data_ptr(),
         zero.data_ptr(), b.data_ptr() if b is not None else None,
         stats.data_ptr(), rows, v, 1.0 / float(tau), _DTYPES[s.dtype],
-        torch.cuda.current_stream(s.device).cuda_stream)
+        *_plan_args(p), torch.cuda.current_stream(s.device).cuda_stream)
     if err:
         raise RuntimeError(f"kd_quant_stats_fwd launch failed: CUDA error "
                            f"{err}")

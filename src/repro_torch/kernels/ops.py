@@ -61,7 +61,8 @@ def rglru(a, b):
 
 def kd_stats(labels, s, t, b, tau):
     """The fused KD loss's forward stats (rows, 11): ``kd_stats_fwd`` on a
-    CUDA tensor, ``kd_stats_ref`` on a CPU one."""
+    CUDA tensor, ``kd_stats_ref`` on a CPU one; tau > 0 on both."""
+    _kd.check_tau(tau, "kd_stats")
     if s.device.type == "cpu":
         return _ref.kd_stats_ref(labels, s, t, b, tau)
     return _kd.kd_stats_fwd(labels, s, t, b, tau)
@@ -122,7 +123,8 @@ def kd_loss(labels, student_logits, teacher_logits, buffer_logits=None,
 def kd_quant_stats(labels, s, codes, scale, zero, b, tau):
     """The dequant-fused loss's forward stats (rows, 11):
     ``kd_quant_stats_fwd`` on a CUDA tensor, ``kd_quant_stats_ref`` on a CPU
-    one."""
+    one; tau > 0 on both."""
+    _kd.check_tau(tau, "kd_quant_stats")
     if s.device.type == "cpu":
         return _ref.kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau)
     return _kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau)

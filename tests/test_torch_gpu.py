@@ -637,6 +637,123 @@ def test_kd_quant_kernel_wrappers_check_inputs(cuda):
                              b, 2.0, 0.125)
 
 
+# -- the forward pair's plans: alignment, edges, graph replay ---------------
+
+# A row past WARP_MAX_V that gives every warp of the block path three
+# chunks and a ragged last one.
+LONG_V = 3 * kd.CHUNK * kd.BLOCK_WARPS + 5
+
+
+def _shifted(x, off):
+    """x's values in a view at storage offset ``off`` elements of a larger
+    buffer, ending where the buffer ends: contiguous, its data pointer moved
+    by off * itemsize bytes, NaN (codes: 127) in the elements before it."""
+    fill = 127 if x.dtype == torch.int8 else float("nan")
+    flat = torch.full((off + x.numel(),), fill, dtype=x.dtype,
+                      device=x.device)
+    flat[off:] = x.reshape(-1)
+    return flat[off:].view(x.shape)
+
+
+def _fwd_case(device, rows, v, dtype, buffer, seed):
+    """Exact and quant forward inputs of one draw: labels, s, t, b (b None
+    without buffer) and the int8 payload of t."""
+    labels, s, t, b, _ = _kd_case(device, rows, v, dtype, buffer, seed)
+    p = codecs.parse_codec("int8").transform.encode(t.float())
+    codes = codecs.parse_codec("int8").transform.unpack_codes(p["codes"], v)
+    return labels, s, t, b, codes, p["scale"], p["zero"]
+
+
+def _check_fwd(labels, s, t, b, codes, scale, zero, tau=2.0, path=None):
+    """Both forward kernels against their plain versions, on the planned
+    path or on ``path``."""
+    got = kd.kd_stats_fwd(labels, s, t, b, tau, path=path)
+    got_q = kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau,
+                                  path=path)
+    torch.cuda.synchronize()
+    tol = TOL[s.dtype]
+    for have, want in ((got, ref.kd_stats_ref(labels, s, t, b, tau)),
+                       (got_q, ref.kd_quant_stats_ref(labels, s, codes, scale,
+                                                      zero, b, tau))):
+        assert torch.isfinite(have).all()
+        assert _rel(have, want) <= tol
+
+
+@pytest.mark.parametrize("offsets", [(1, 5, 11, 13), (15, 2, 7, 3),
+                                     (8, 14, 1, 6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,v", [(129, 100), (3, kd.WARP_MAX_V + 1),
+                                    (2, 49155)])
+def test_kd_forward_reads_views_at_any_storage_offset(cuda, rows, v, dtype,
+                                                      offsets):
+    """s, t, b and codes each start 1-15 elements into their storage, so
+    every tensor's rows are misaligned in their own way; elements before a
+    view are NaN."""
+    labels, s, t, b, codes, scale, zero = _fwd_case(cuda, rows, v, dtype,
+                                                    True, seed=rows + v)
+    os_, ot, ob, oc = offsets
+    s, t, b, codes = (_shifted(s, os_), _shifted(t, ot), _shifted(b, ob),
+                      _shifted(codes, oc))
+    assert s.is_contiguous() and s.storage_offset() == os_
+    _check_fwd(labels, s, t, b, codes, scale, zero)
+
+
+@pytest.mark.parametrize("path", [None, "warp", "block"])
+@pytest.mark.parametrize("buffer", [False, True])
+@pytest.mark.parametrize("v", [1, 7, 33, kd.WARP_MAX_V, kd.WARP_MAX_V + 1,
+                               LONG_V])
+@pytest.mark.parametrize("rows", [1, 6, 133])
+def test_kd_forward_plans_at_the_edges(cuda, rows, v, buffer, path):
+    """V = 1, V either side of WARP_MAX_V and past several block rounds,
+    rows not a multiple of the warp path's rows a block; each shape on its
+    planned path and forced onto either path."""
+    dtype = torch.float32
+    inputs = _fwd_case(cuda, rows, v, dtype, buffer, seed=3 * rows + v)
+    planned = kd.plan(rows, v)
+    assert planned.path == ("warp" if v <= kd.WARP_MAX_V else "block")
+    assert planned.blocks * planned.rows_per_block >= rows
+    _check_fwd(*inputs, path=path)
+
+
+def test_kd_forward_wrappers_reject_tau_at_or_below_zero(cuda):
+    labels, s, t, b, codes, scale, zero = _fwd_case(cuda, 4, 100,
+                                                    torch.float32, True, 1)
+    for tau in (0.0, -1.0):
+        with pytest.raises(ValueError, match="tau > 0"):
+            kd.kd_stats_fwd(labels, s, t, b, tau)
+        with pytest.raises(ValueError, match="tau > 0"):
+            kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau)
+
+
+@pytest.mark.parametrize("v", [100, kd.WARP_MAX_V + 1, 49155])
+def test_kd_forward_wrappers_replay_from_a_cuda_graph(cuda, v):
+    """The plan comes from the shapes alone: a graph captured once (after
+    each plan's first eager call) replays both wrappers on new values
+    copied into the same tensors and equals eager launches bit for bit."""
+    rows, tau = 24, 2.0
+    first = list(_fwd_case(cuda, rows, v, torch.bfloat16, True, 1))
+    second = _fwd_case(cuda, rows, v, torch.bfloat16, True, 2)
+    labels, s, t, b, codes, scale, zero = first
+
+    def both():
+        return (kd.kd_stats_fwd(labels, s, t, b, tau),
+                kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau))
+
+    before = both()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    for have, new in zip(first, second):
+        have.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = both()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert not any(torch.equal(o, w) for o, w in zip(out, before))
+
+
 def test_int8_federated_round_on_card_matches_cpu_and_runs_the_quant_kernels(
         cuda):
     """One quickstart bkd round with int8 uplink transport, f32 with TF32
