@@ -30,12 +30,20 @@ together; each prints its kernels' registers and spills), then:
               rows, Granite's 49,155-token vocabulary ending in -1e30 pad
               columns, f32 and bf16), printing each forward plan; times the
               forward's two paths across ``WARP_MAX_V`` (V 512-8,192 at 128
-              and 512 rows) and the pair beside the plain versions and
-              their bounds;
+              and 512 rows); times the backward as planned, at one logit
+              a thread and at 16-byte vectors from the main path's shape
+              to the LLM shape, each held against the plain version;
+              holds the backward, 16-byte vectors asked for, against it
+              with s, t and b at storage offsets 1-15 (one offset for all,
+              and one each) and at V = 1 and 7;
+              prints a graph's launch floor and times the pair beside the
+              plain versions and their bounds;
 6. fl         runs Algorithm 1 (``FederatedKD.run``) with ResNet-32 at full
               width on CIFAR-shaped data (1 core + 3 edge silos of ~2,500
               images), for kd, bkd and one bkd round with R=2 teachers, and
               checks that every Phase-2 step went through both kernels;
+              prints the backward operands' base skews (bytes mod 16) on
+              the first Phase-2 step;
 7. fl parity  runs the quickstart's MLP federation (f32, TF32 off) on the
               card and on the CPU from one initial state: the first Phase-2
               loss and the per-round test accuracy must agree;
@@ -46,13 +54,14 @@ together; each prints its kernels' registers and spills), then:
               gradient against their plain versions (teacher payloads from
               the port's int8 and int4 codecs) at the FL main path's shape
               and at the LLM shape, printing each forward plan, with phase
-              5's path sweep (f32), and times them beside the plain
-              versions and their bounds;
+              5's path sweep (f32), backward widths and offset checks, and
+              times them beside the plain versions and their bounds;
 10. fl transport   runs phase 6's ResNet-32 federation with uplink transport
               (bkd@int8, kd@int4, one bkd@int8 round with R=2 teachers) and
               checks the uplink bytes against the codec's accounting and
               that every R=1 Phase-2 step went through the quant pair (R=2
-              decodes and goes through the exact pair);
+              decodes and goes through the exact pair), printing the
+              backward operands' skews on the first Phase-2 step;
 11. fl transport parity   the quickstart's MLP federation with int8 on the
               card and on the CPU: first Phase-2 loss, per-round test
               accuracy and the round-0 payload codes;
@@ -113,6 +122,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -596,6 +606,97 @@ def _fwd_sweep(tag, fwd, make_sets, dtypes):
                       f"{kd_mod.WARP_MAX_V})")
 
 
+# The backward's width timing: the C side's plan against one logit a
+# thread and 16-byte vectors, with buffer, at the FL main path's shape, the
+# LLM shape and three between that bracket the plan's switch from one logit
+# a thread to vectors (BWD_FILL_THREADS threads an SM).
+BWD_SWEEP_SHAPES = ((128, 100), (256, 256), (128, 1000), (512, 1024),
+                    (512, 49155))
+
+
+def _bwd_sweep(tag, bwd, plain, make_sets, dtypes):
+    """Times ``bwd`` (a backward wrapper) as the C side plans it and at
+    each width (one logit a thread, 16 bytes of logits); ``make_sets(rows,
+    v, dtype)`` gives its argument sets (without tau and mean_scale), each
+    launch held against ``plain`` on the first set."""
+    for dtype in dtypes:
+        name = str(dtype).split('.')[-1]
+        w = 16 // torch.empty(0, dtype=dtype).element_size()
+        for rows, v in BWD_SWEEP_SHAPES:
+            sets = make_sets(rows, v, dtype)
+            want = plain(*sets[0], TAU, 1.0 / rows)
+            cells, worst = [], 0.0
+            for width in (None, 1, w):
+                def fn(*a, width=width):
+                    return bwd(*a, TAU, 1.0 / rows, width=width)
+                got = fn(*sets[0])
+                torch.cuda.synchronize()
+                err = _rel_err(got, want)
+                check(math.isfinite(err) and err <= TOL[dtype],
+                      f"{tag} bwd sweep rows={rows} V={v} {name} width "
+                      f"{width}: relative err {err} > {TOL[dtype]}")
+                worst = max(worst, err)
+                what = "planned" if width is None else f"width {width}"
+                cells.append(f"{what} {time_ms(fn, sets):.5f}")
+            print(f"[{tag}] bwd widths rows={rows} V={v} {name} buffer=True "
+                  f"(ms): {', '.join(cells)}; relative err <= {worst:.3g}")
+
+
+def _shifted(x, off):
+    """x's values in a view ``off`` elements into a larger buffer whose
+    first elements are NaN (codes: 127)."""
+    fill = 127 if x.dtype == torch.int8 else float("nan")
+    flat = torch.full((off + x.numel(),), fill, dtype=x.dtype, device=x.device)
+    flat[off:] = x.reshape(-1)
+    return flat[off:].view(x.shape)
+
+
+def _check_bwd_edges(tag, bwd, plain, make_args):
+    """``bwd`` against ``plain`` with 16-byte vectors asked for, at 6 x 100
+    (bf16 vectors cross every other row end) with s, the teacher and b at
+    storage offsets 1-15: all at one offset (a scalar head, then vectors,
+    f32 ones crossing row ends too) and each at its own (skews that differ
+    take one logit a thread); and at V = 1 and 7, 133 rows (rows end inside
+    a vector, several times at V = 1).  ``make_args(rows, v, dtype)`` gives
+    one argument set: labels, g, stats, s, the teacher (t or codes first)
+    and b last."""
+    worst = {}
+
+    def hold(what, dtype, args, rows):
+        w = 16 // torch.empty(0, dtype=dtype).element_size()
+        got = bwd(*args, TAU, 1.0 / rows, width=w)
+        err = _rel_err(got, plain(*args, TAU, 1.0 / rows))
+        worst[(what, dtype)] = max(worst.get((what, dtype), 0), err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for o in range(1, 16):
+            for what, offs in (("one offset", (o, o, o)),
+                               ("own offsets", (o, (o + 4) % 15 + 1,
+                                                (o + 9) % 15 + 1))):
+                args = list(make_args(6, 100, dtype))
+                for pos, off in zip((3, 4, len(args) - 1), offs):
+                    args[pos] = _shifted(args[pos], off)
+                hold(what, dtype, args, 6)
+        for v in (1, 7):
+            hold(f"V={v}", dtype, make_args(133, v, dtype), 133)
+    torch.cuda.synchronize()
+    for (what, dtype), e in worst.items():
+        check(math.isfinite(e) and e <= TOL[dtype],
+              f"{tag} bwd {what} {dtype}: relative err {e} > {TOL[dtype]}")
+    print(f"[{tag}] bwd with 16-byte vectors asked for, at storage offsets "
+          f"1-15 (s, teacher, b; 6 x 100) and at V = 1, 7 (133 rows): "
+          f"relative err "
+          + ", ".join(f"{w} {str(d).split('.')[-1]} {e:.3g}"
+                      for (w, d), e in worst.items()))
+
+
+def launch_floor_ms():
+    """A graph's launch floor: a one-element tensor's zero_(), replayed
+    from a CUDA graph as the kernels are."""
+    x = torch.zeros(1, device="cuda")
+    return time_ms(lambda a: a.zero_(), [(x,)] * 8)
+
+
 def _check_kd(rows, v, dtype, buffer, pad, seed):
     """Kernels against plain versions; ops.kd_loss's loss and autograd
     gradient against the plain path.  Returns the max abs errors of
@@ -631,6 +732,14 @@ def _check_kd(rows, v, dtype, buffer, pad, seed):
             (ds.float() - want_ds.float()).abs().max().item())
 
 
+def _kd_bwd_sets(rows, v, dtype, seed, copies=1):
+    """Backward argument sets (labels, g, stats, s, t, b), with buffer, the
+    stats from the forward kernel."""
+    sets = _kd_inputs(rows, v, dtype, True, seed=seed, copies=copies)
+    return [(y, g, kd_mod.kd_stats_fwd(y, s, t, b, TAU), s, t, b)
+            for y, s, t, b, g in sets]
+
+
 def _time_kd(shape, dtype, buffer, copies):
     """Device ms of (fwd kernel, bwd kernel, fwd plain, bwd plain), each
     replayed from a CUDA graph over ``copies`` input sets."""
@@ -648,11 +757,14 @@ def _time_kd(shape, dtype, buffer, copies):
 
 def _time_pair(tag, names, replaces, time_fn, bounds_fn, abs_errs):
     """Times a (forward, backward) kd kernel pair and its plain versions at
-    the main path's shape (f32, with and without buffer) and the LLM shape
-    (f32 and bf16, with buffer) beside its bounds.  Returns the pair's
-    kernel-table entries at the main path's shape with buffer (launches
-    filled in by an fl phase)."""
+    the main path's shape (f32, with and without buffer; beside a graph's
+    launch floor) and the LLM shape (f32 and bf16, with buffer) beside its
+    bounds.  Returns the pair's kernel-table entries at the main path's
+    shape with buffer (launches filled in by an fl phase)."""
     entries = []
+    floor = launch_floor_ms()
+    print(f"[{tag}] launch floor: a one-element zero_() replayed from a "
+          f"CUDA graph, {floor:.5f} ms")
     for label, shape, dtype, copies in (
             ("main path", KD_MAIN, torch.float32, 8),
             ("LLM", KD_LLM, torch.float32, 2),
@@ -666,9 +778,11 @@ def _time_pair(tag, names, replaces, time_fn, bounds_fn, abs_errs):
                       f"{str(dtype).split('.')[-1]} buffer={buffer}: kernel "
                       f"{ms[k]:.5f} ms, plain {ms[k + 2]:.5f} ms, bound "
                       f"{bounds[k][0]:.5f} ms ({bounds[k][1]}), "
-                      f"{bounds[k][0] / ms[k]:.1%} of the bound; library: "
-                      f"none (no single PyTorch call computes this fused "
-                      f"function)")
+                      f"{bounds[k][0] / ms[k]:.1%} of the bound; "
+                      + (f"launch floor {floor:.5f} ms; "
+                         if label == "main path" else "")
+                      + "library: none (no single PyTorch call computes "
+                      "this fused function)")
             if label == "main path" and buffer:
                 entries += [{
                     "name": name, "route": "cuda",
@@ -694,6 +808,13 @@ def phase_kd_kernels():
                lambda rows, v, dtype: [a[:4] for a in _kd_inputs(
                    rows, v, dtype, True, seed=5, copies=4)],
                (torch.float32, torch.bfloat16))
+    _bwd_sweep("kd", kd_mod.kd_grad_bwd, kref.kd_grad_ref,
+               lambda rows, v, dtype: _kd_bwd_sets(rows, v, dtype, seed=6,
+                                                   copies=4),
+               (torch.float32, torch.bfloat16))
+    _check_bwd_edges("kd", kd_mod.kd_grad_bwd, kref.kd_grad_ref,
+                     lambda rows, v, dtype: _kd_bwd_sets(rows, v, dtype,
+                                                         seed=7)[0])
     return _time_pair("kd", ("kd_stats_fwd", "kd_grad_bwd"),
                       ("src/repro/kernels/kd_loss.py:244",
                        "src/repro/kernels/kd_loss.py:271"),
@@ -734,9 +855,49 @@ KD_COUNTERS = {"kd_stats_fwd": kd_mod.kd_stats_fwd,
                "kd_quant_grad_bwd": kd_mod.kd_quant_grad_bwd}
 
 
-def _fl_run(silos, method, rounds, r, transport="none", tag="fl"):
+@contextlib.contextmanager
+def _print_bwd_skews(tag):
+    """Inside the block, the first backward (``ops.kd_grad`` or
+    ``ops.kd_quant_grad``, which call the two kernel wrappers: the first
+    Phase-2 step) prints each logit operand's base skew, its data
+    pointer's bytes mod 16 (0: the flat pass runs on vectors from element
+    0)."""
+    names = {"kd_grad": ("kd_grad_bwd",
+                         ("labels", "g", "stats", "s", "t", "b")),
+             "kd_quant_grad": ("kd_quant_grad_bwd",
+                               ("labels", "g", "stats", "s", "codes",
+                                "scale", "zero", "b"))}
+    originals = {n: getattr(ops, n) for n in names}
+    done = []
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            ds = fn(*args, **kw)
+            if not done:
+                done.append(name)
+                kernel, params = names[name]
+                skew = {k: x.data_ptr() % 16 for k, x in zip(params, args)
+                        if k in ("s", "t", "codes", "b") and x is not None}
+                skew["ds"] = ds.data_ptr() % 16
+                print(f"[{tag}] first Phase-2 step: {kernel} operands' base "
+                      f"skew (bytes mod 16): {skew}")
+            return ds
+        return call
+
+    for n, fn in originals.items():
+        setattr(ops, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(ops, n, fn)
+
+
+def _fl_run(silos, method, rounds, r, transport="none", tag="fl",
+            skews=False):
     """One ResNet-32 federation; returns each kd kernel's launches in it
-    (every count set to 0 just before the run and read just after)."""
+    (every count set to 0 just before the run and read just after); with
+    ``skews`` its first Phase-2 step prints the backward's operand skews."""
     core, edges, test = silos
     cfg = FLConfig(num_edges=3, rounds=rounds, aggregation_r=r, method=method,
                    core_epochs=2, edge_epochs=2, kd_epochs=2, batch_size=128,
@@ -752,7 +913,8 @@ def _fl_run(silos, method, rounds, r, transport="none", tag="fl"):
     for c in KD_COUNTERS.values():
         c.launches = 0
     t0 = time.perf_counter()
-    _, hist = fl.run(0, log=None)
+    with _print_bwd_skews(tag) if skews else contextlib.nullcontext():
+        _, hist = fl.run(0, log=None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: c.launches for n, c in KD_COUNTERS.items()}
@@ -807,8 +969,9 @@ def phase_fl():
           f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")
     total = [0, 0]
-    for method, rounds, r in (("kd", 3, 1), ("bkd", 3, 1), ("bkd", 1, 2)):
-        launches = _fl_run(silos, method, rounds, r)
+    for k, (method, rounds, r) in enumerate((("kd", 3, 1), ("bkd", 3, 1),
+                                             ("bkd", 1, 2))):
+        launches = _fl_run(silos, method, rounds, r, skews=k == 0)
         total = [a + launches[n] for a, n in zip(
             total, ("kd_stats_fwd", "kd_grad_bwd"))]
     return total
@@ -941,6 +1104,14 @@ def _check_kdq(rows, v, dtype, buffer, bits, seed):
             (ds.float() - want_ds.float()).abs().max().item())
 
 
+def _kdq_bwd_sets(rows, v, dtype, seed, copies=1):
+    """Backward argument sets (labels, g, stats, s, codes, scale, zero, b)
+    on int8 payloads, with buffer, the stats from the forward kernel."""
+    sets = _kdq_inputs(rows, v, dtype, True, 8, seed=seed, copies=copies)
+    return [(y, g, kd_mod.kd_quant_stats_fwd(y, s, c, sc, z, b, TAU), s, c,
+             sc, z, b) for y, s, c, sc, z, b, g in sets]
+
+
 def _time_kdq(shape, dtype, buffer, copies):
     """Device ms of (fwd kernel, bwd kernel, fwd plain, bwd plain) on int8
     payloads, each replayed from a CUDA graph over ``copies`` input sets
@@ -975,6 +1146,13 @@ def phase_kdq_kernels():
                lambda rows, v, dtype: [a[:6] for a in _kdq_inputs(
                    rows, v, dtype, True, 8, seed=5, copies=4)],
                (torch.float32,))
+    _bwd_sweep("kdq", kd_mod.kd_quant_grad_bwd, kref.kd_quant_grad_ref,
+               lambda rows, v, dtype: _kdq_bwd_sets(rows, v, dtype, seed=6,
+                                                    copies=4),
+               (torch.float32, torch.bfloat16))
+    _check_bwd_edges("kdq", kd_mod.kd_quant_grad_bwd, kref.kd_quant_grad_ref,
+                     lambda rows, v, dtype: _kdq_bwd_sets(rows, v, dtype,
+                                                          seed=7)[0])
     return _time_pair("kdq", ("kd_quant_stats_fwd", "kd_quant_grad_bwd"),
                       ("src/repro/kernels/kd_loss.py:298",
                        "src/repro/kernels/kd_loss.py:331"),
@@ -988,11 +1166,11 @@ def phase_fl_transport():
     torch.backends.cuda.matmul.allow_tf32 = False
     silos = _cifar_silos()
     total = {n: 0 for n in KD_COUNTERS}
-    for method, rounds, r, spec in (("bkd", 3, 1, "int8"),
-                                    ("kd", 3, 1, "int4"),
-                                    ("bkd", 1, 2, "int8")):
+    for k, (method, rounds, r, spec) in enumerate((("bkd", 3, 1, "int8"),
+                                                   ("kd", 3, 1, "int4"),
+                                                   ("bkd", 1, 2, "int8"))):
         launches = _fl_run(silos, method, rounds, r, transport=spec,
-                           tag="fl transport")
+                           tag="fl transport", skews=k == 0)
         total = {n: total[n] + launches[n] for n in total}
     print(f"[fl transport] launches over the phase: {total}")
     _phase2_ab(silos)

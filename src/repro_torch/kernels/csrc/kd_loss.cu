@@ -25,12 +25,13 @@
 //
 // Bound on an H100: bytes.  Per logit the forward does four exponentials
 // and a few multiply-adds against 4 (or 2) bytes read per tensor, about 10
-// operations a byte, under the card's f32 balance of ~20; the backward is
-// the same.  The least time is the logits read once (and ds written once)
-// over 3.35 TB/s.  The quant pair reads 1 byte of teacher per logit and
-// adds one FMA, so it is more bytes-bound still, with a lower bound.  In
-// bf16 the forward also nears the issue rate: ~56 SASS instructions a logit
-// (four accurate expf of ~9 each) put its issue floor near the bytes bound.
+// operations a byte, under the card's f32 balance of ~20; the backward
+// does the same against one more tensor (ds written).  The least time is
+// the logits read once (and ds written once) over 3.35 TB/s.  The quant
+// pair reads 1 byte of teacher per logit and adds one FMA, so it is more
+// bytes-bound still, with a lower bound.  In bf16 both directions also
+// near the issue rate: ~47-56 SASS instructions a logit (four accurate
+// expf of ~9 each) put their issue floors near the bytes bound.
 //
 // Forward design.  The TPU grid (row blocks, vocab tiles) runs its vocab
 // axis in order and carries the online (max, denominator, numerators)
@@ -96,9 +97,52 @@
 // check a chunk) came from variants tried on the card whose script is not
 // kept.
 //
-// The backward is elementwise: a 2-D grid of (row, 1024-column chunk)
-// blocks whose threads read the row's stats once and write four columns
-// each.  Any V is taken; pad columns of -1e30 contribute exactly zero.
+// Backward design.  The backward is elementwise, and s, the teacher, b and
+// ds are contiguous (rows, V) of one shape, so it is one flat pass over the
+// n = rows * V logits: a row end inside a vector changes only which row's
+// label, g and stats apply.  What bounds it: at an LLM vocabulary the bytes
+// (three or four tensors read, ds written), with the bf16 issue floor not
+// far under them (four accurate expf a logit with a buffer, ~46-50 SASS
+// instructions: kd_sass); at the FL main path's 128 x 100 (12,800 logits,
+// 0.00006 ms of bytes) a graph launch and one dependent round trip.  So a
+// thread moves 16 bytes a tensor an access (4 f32 or 8 bf16 logits; 4 or 8
+// bytes of codes), one vector a thread, kBwdThreads a block: 24,578 blocks
+// at 512 x 49,155 in bf16.  Where 16-byte vectors would give the card's SMs
+// fewer than kBwdFillThreads threads each (one warp a scheduler) the same
+// kernel runs one logit a thread (W = 1): there a thread's serial exps, not
+// bytes, set the time.  A thread finds its vector's row with a multiply by
+// a magic number (GradArgs::magic) and loads the vector with the row's
+// data, and the next row's where the vector crosses a row end, before it
+// computes.  A vector inside one row compares its columns with the label
+// at a fixed offset; one that crosses steps to the next row there (several
+// times when V < W).  Each tensor's base has its own skew: with vectors the
+// launch peels a head of scalar elements to s's 16-byte boundary, and the
+// body runs on vectors when every tensor is on its own boundary there
+// (codes: W bytes; the wrappers allocate ds at s's skew); tensors whose
+// skews differ take one logit a thread.  Threads 0 .. 2W - 1 of block 0
+// take the head and the tail.  The plan is made on the host from the
+// shapes, the SM count and the pointers, so a CUDA graph replays it; no
+// byte outside a tensor is read, none outside ds written.  Pad columns of
+// -1e30 contribute exactly zero.
+//
+// The constants, from a backward sweep an earlier chip_smoke.py ran while
+// threads a block and vectors a thread were run-time arguments (with
+// buffer; NVIDIA H100 80GB HBM3, 700.00 W): one vector a thread beat two
+// and four at every swept shape (512 x 49,155 bf16: 0.0692 against 0.0712
+// and 0.0891 ms; 128 x 100 f32: 0.00214 against 0.00242 and 0.00324); 64,
+// 128 or 256 threads a block moved nothing beyond the run's spread (0.0694,
+// 0.0692, 0.0692).  The fill threshold, from the width timing chip_smoke.py
+// keeps (phases 5 and 9: planned, one logit a thread, 16-byte vectors):
+// one logit a thread beats vectors where vectors leave the card's
+// schedulers short (128 x 100 bf16: 0.00202 against 0.00277) and loses
+// where they fill it (512 x 1,024 bf16: 0.00440 against 0.00311; 512 x
+// 49,155 bf16: 0.1529 against 0.0689); between, at 256 x 256 and 128 x
+// 1,000, the two tie within the spread.  Variants tried on the card whose
+// code is not kept: loading the vectors before finding the row took more
+// registers and was slower at the LLM shape; a cap of 40 registers (12
+// blocks an SM) spilled and slowed the quant kernel in f32.  The cap of
+// 48 (kBwdMinBlocks, no spill) is kept: uncapped, the quant kernel in bf16
+// took 56 and ran slower at the LLM shape, the other instances no faster.
 //
 // The quant pair takes the teacher as a transport payload: int8 codes
 // (rows, V) and a per-row f32 affine, t = code * scale[row] + zero[row].
@@ -112,11 +156,6 @@
 // The forward folds 1/tau into the affine (over_tau).  The TPU kernel pads
 // codes to its 128-lane tile and masks the pad columns by index; these
 // kernels read exactly V columns, so there is nothing to mask.
-//
-// Not done yet (later work): the backward's launch shape (a 256-thread
-// block a 1,024-column chunk, scalar loads) leaves most of a block idle at
-// the FL main path's V = 100; several rows a block and staged 16-byte
-// loads would serve it as they serve the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,8 +166,13 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kStats = 11;
-constexpr int kThreads = 256;  // backward
-constexpr int kUnroll = 4;     // backward: columns a thread
+constexpr int kBwdThreads = 128;  // backward: threads a block
+// backward: blocks an SM the registers must allow (at most 51 a thread, so
+// 48: every instance fits without a spill)
+constexpr int kBwdMinBlocks = 10;
+// backward: 16-byte vectors once they give every SM this many threads
+// (one warp a scheduler), else one logit a thread
+constexpr int kBwdFillThreads = 128;
 constexpr int kBlockThreads = 256;  // forward block path
 constexpr int kBlockWarps = kBlockThreads / 32;
 constexpr int kTile = 16;      // forward block path: columns a lane a chunk
@@ -160,9 +204,10 @@ __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-// Teacher readers: row(r, V) gives the row's reader; of(x) turns a stored
-// element (Elem) into the teacher's logit in f32 and Row()(c) reads column
-// c of the row; data() is the stored tensor, which the forward stages.
+// Teacher readers: row(r, V) gives the row's reader, whose of(x) turns a
+// stored element (Elem) into the teacher's logit in f32 (p: the row's
+// first element); data() is the stored tensor, which the forward stages
+// and the backward reads flat.
 template <typename T>
 struct ExactTeacher {
   using Elem = T;
@@ -171,9 +216,6 @@ struct ExactTeacher {
   struct Row {
     const T* __restrict__ p;
     __device__ __forceinline__ float of(T x) const { return to_f32(x); }
-    __device__ __forceinline__ float operator()(int c) const {
-      return of(p[c]);
-    }
     // t / tau, as the forward uses it.
     __device__ __forceinline__ float over_tau(T x, float inv_tau) const {
       return of(x) * inv_tau;
@@ -182,7 +224,7 @@ struct ExactTeacher {
   __device__ __forceinline__ Row row(int r, int V) const {
     return Row{t + static_cast<int64_t>(r) * V};
   }
-  __device__ __forceinline__ const T* data() const { return t; }
+  __host__ __device__ __forceinline__ const T* data() const { return t; }
 };
 
 struct QuantTeacher {
@@ -197,9 +239,6 @@ struct QuantTeacher {
     __device__ __forceinline__ float of(int8_t x) const {
       return fmaf(code_to_f32(x), scale, zero);
     }
-    __device__ __forceinline__ float operator()(int c) const {
-      return of(p[c]);
-    }
     // t / tau with 1 / tau folded into the affine (exact for tau a power
     // of two; otherwise within an ulp of of(x) * inv_tau).
     __device__ __forceinline__ float over_tau(int8_t x, float inv_tau) const {
@@ -209,7 +248,9 @@ struct QuantTeacher {
   __device__ __forceinline__ Row row(int r, int V) const {
     return Row{codes + static_cast<int64_t>(r) * V, scale[r], zero[r]};
   }
-  __device__ __forceinline__ const int8_t* data() const { return codes; }
+  __host__ __device__ __forceinline__ const int8_t* data() const {
+    return codes;
+  }
 };
 
 // -- forward: tile math and merge -------------------------------------------
@@ -720,67 +761,277 @@ int launch_fwd(const void* labels, const void* s, const Teacher& teacher,
                                                   st);
 }
 
-// -- backward ---------------------------------------------------------------
+// -- backward: one flat pass -------------------------------------------------
+
+// W elements of X in one register word of W * sizeof(X) bytes (16 down to
+// 1), loaded and stored as one access (the address on that boundary).
+template <int kBytes>
+struct WordOf;
+template <>
+struct WordOf<1> {
+  using type = unsigned char;
+};
+template <>
+struct WordOf<2> {
+  using type = unsigned short;
+};
+template <>
+struct WordOf<4> {
+  using type = unsigned;
+};
+template <>
+struct WordOf<8> {
+  using type = uint2;
+};
+template <>
+struct WordOf<16> {
+  using type = uint4;
+};
+template <typename X, int W>
+struct Pack {
+  using Word = typename WordOf<static_cast<int>(sizeof(X)) * W>::type;
+  Word w;
+  __device__ __forceinline__ X operator[](int k) const {
+    return reinterpret_cast<const X*>(&w)[k];
+  }
+  __device__ __forceinline__ X& operator[](int k) {
+    return reinterpret_cast<X*>(&w)[k];
+  }
+};
+template <typename X, int W>
+__device__ __forceinline__ void load_pack(Pack<X, W>& out,
+                                          const X* __restrict__ p) {
+  out.w = *reinterpret_cast<const typename Pack<X, W>::Word*>(p);
+}
+template <typename X, int W>
+__device__ __forceinline__ void store_pack(X* __restrict__ p,
+                                           const Pack<X, W>& x) {
+  *reinterpret_cast<typename Pack<X, W>::Word*>(p) = x.w;
+}
+
+// What the backward reads once a row: the label, g * mean_scale, the lse
+// columns of the stats (0, 2, 3 and 6) and the teacher's row reader (the
+// quant teacher's scale and zero).
+template <typename Teacher, bool kBuffer>
+struct GradRow {
+  int64_t y;
+  float gs, lse_s, lse_st, lse_tt, lse_bt;
+  typename Teacher::Row tr;
+};
 
 template <typename T, typename Teacher, bool kBuffer>
-__global__ void __launch_bounds__(kThreads)
-    kd_grad_kernel(const int64_t* __restrict__ labels,
-                   const float* __restrict__ g,
-                   const float* __restrict__ stats, const T* __restrict__ s,
-                   const Teacher teacher, const T* __restrict__ b,
-                   T* __restrict__ ds, int V, float tau, float inv_tau,
-                   float mean_scale) {
-  const int row = blockIdx.x;
-  const float* st = stats + static_cast<int64_t>(row) * kStats;
-  const float lse_s = st[0], lse_st = st[2], lse_tt = st[3];
-  const float lse_bt = kBuffer ? st[6] : 0.f;
-  const float gs = g[row] * mean_scale;
-  const int64_t y = labels[row];
-  const int64_t base = static_cast<int64_t>(row) * V;
-  const auto tr = teacher.row(row, V);
-  const int c0 = blockIdx.y * kThreads * kUnroll + threadIdx.x;
-  float xs[kUnroll], xt[kUnroll], xb[kUnroll];
-#pragma unroll
-  for (int k = 0; k < kUnroll; ++k) {
-    const int c = c0 + k * kThreads;
-    const bool in = c < V;
-    xs[k] = in ? to_f32(s[base + c]) : 0.f;
-    xt[k] = in ? tr(c) : 0.f;
-    if (kBuffer) xb[k] = in ? to_f32(b[base + c]) : 0.f;
+struct GradArgs {
+  // floor(i / V) = the high 64 bits of i * magic for i < 2^32 (magic =
+  // floor(2^64 / V) + 1, V >= 2; exact, as i (magic - 2^64 / V) < 2^32 / 2^64
+  // <= 1 / V); V = 1 takes i itself.
+  uint64_t magic;
+  const int64_t* __restrict__ labels;
+  const float* __restrict__ g;
+  const float* __restrict__ stats;
+  const T* __restrict__ s;
+  Teacher teacher;
+  const T* __restrict__ b;
+  T* __restrict__ ds;
+  int V;
+  float tau, inv_tau, mean_scale;
+
+  __device__ __forceinline__ GradRow<Teacher, kBuffer> row(int64_t r) const {
+    const float* st = stats + r * kStats;
+    return {labels[r], g[r] * mean_scale, st[0], st[2], st[3],
+            kBuffer ? st[6] : 0.f, teacher.row(static_cast<int>(r), V)};
   }
-#pragma unroll
-  for (int k = 0; k < kUnroll; ++k) {
-    const int c = c0 + k * kThreads;
-    if (c >= V) break;
-    const float p_s = expf(xs[k] - lse_s);
-    const float p_st = expf(xs[k] * inv_tau - lse_st);
-    const float p_tt = expf(xt[k] * inv_tau - lse_tt);
-    float d = p_s - (c == y ? 1.f : 0.f) + tau * (p_st - p_tt);
-    if (kBuffer) d = d + tau * (p_st - expf(xb[k] * inv_tau - lse_bt));
-    ds[base + c] = from_f32<T>(gs * d);
+
+  // ds of one logit: s, the teacher and b in f32, hit where its column is
+  // the row's label.  Exponents of s/tau, t/tau and b/tau are one FMA.
+  __device__ __forceinline__ float grad(float x, float t, float xb, bool hit,
+                                        const GradRow<Teacher, kBuffer>& R)
+      const {
+    const float p_s = expf(x - R.lse_s);
+    const float p_st = expf(fmaf(x, inv_tau, -R.lse_st));
+    const float p_tt = expf(fmaf(t, inv_tau, -R.lse_tt));
+    float d = p_s - (hit ? 1.f : 0.f) + tau * (p_st - p_tt);
+    if (kBuffer) d = d + tau * (p_st - expf(fmaf(xb, inv_tau, -R.lse_bt)));
+    return R.gs * d;
   }
+
+  // Row and column of flat index i: two 32 x 32-bit products when every
+  // index fits in 32 bits (narrow), else a 64-bit division.
+  __device__ __forceinline__ void row_col(size_t i, bool narrow, int64_t& r,
+                                          int& c) const {
+    if (narrow) {
+      const uint64_t x = static_cast<uint32_t>(i);
+      const uint64_t lo = x * static_cast<uint32_t>(magic);
+      const uint64_t hi = x * static_cast<uint32_t>(magic >> 32);
+      r = V == 1 ? static_cast<int64_t>(x)
+                 : static_cast<int64_t>((hi + (lo >> 32)) >> 32);
+    } else {
+      r = static_cast<int64_t>(i / static_cast<size_t>(V));
+    }
+    c = static_cast<int>(i - static_cast<size_t>(r) * V);
+  }
+
+  // Flat element i, alone (the peeled head and tail).
+  __device__ __forceinline__ void scalar(size_t i, bool narrow) const {
+    int64_t r;
+    int c;
+    row_col(i, narrow, r, c);
+    const auto R = row(r);
+    ds[i] = from_f32<T>(grad(to_f32(s[i]), R.tr.of(teacher.data()[i]),
+                             kBuffer ? to_f32(b[i]) : 0.f, c == R.y, R));
+  }
+};
+
+// The flat pass over the n = rows * V logits in vectors of W (16 bytes of s,
+// or 1), one a thread: elements [0, head) and the tail past head + nvec W
+// are scalar (threads of block 0), the nvec vectors between them start on
+// W-element boundaries of every tensor.  Thread x of block z takes vector
+// z kBwdThreads + x (neighbouring lanes on neighbouring vectors): it finds
+// the vector's row, loads the vector with the row's data (and the next
+// row's where the vector crosses a row end), then computes and stores it.
+template <typename T, typename Teacher, bool kBuffer, int W>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    kd_grad_kernel(const GradArgs<T, Teacher, kBuffer> a, size_t n,
+                   size_t head, size_t nvec) {
+  using E = typename Teacher::Elem;
+  const int V = a.V;
+  const bool narrow = n <= 0xffffffffull;
+  const size_t v = static_cast<size_t>(blockIdx.x) * kBwdThreads +
+                   threadIdx.x;
+  const bool ok = v < nvec;
+  const size_t i = head + v * W;
+
+  Pack<T, W> xs, xb;
+  Pack<E, W> xt;
+  GradRow<Teacher, kBuffer> rd, nx;  // the row, the next one
+  int64_t r = 0;
+  int c = 0;
+  if (ok) {
+    a.row_col(i, narrow, r, c);
+    load_pack(xs, a.s + i);
+    load_pack(xt, a.teacher.data() + i);
+    if (kBuffer) load_pack(xb, a.b + i);
+    rd = a.row(r);
+    if (c + W > V) nx = a.row(r + 1);  // the vector crosses
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 2 * W) {  // the head and the tail
+    const int k = threadIdx.x;
+    const size_t tail = n - head - nvec * W;
+    const size_t e = static_cast<size_t>(k < W ? k : k - W);
+    if (k < W ? e < head : e < tail)
+      a.scalar(k < W ? e : head + nvec * W + e, narrow);
+  }
+  if (!ok) return;
+  Pack<T, W> out;
+  if (c + W <= V) {  // inside one row
+    const int64_t yk = rd.y - c;
+    const int hit = yk >= 0 && yk < W ? static_cast<int>(yk) : -1;
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      out[k] = from_f32<T>(a.grad(to_f32(xs[k]), rd.tr.of(xt[k]),
+                                  kBuffer ? to_f32(xb[k]) : 0.f, k == hit,
+                                  rd));
+  } else {  // crosses one row end, or more when V < W: step the row
+    auto R = rd;
+    int64_t rr = r;
+    int cc = c;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (cc == V) {
+        cc = 0;
+        R = ++rr == r + 1 ? nx : a.row(rr);
+      }
+      out[k] = from_f32<T>(a.grad(to_f32(xs[k]), R.tr.of(xt[k]),
+                                  kBuffer ? to_f32(xb[k]) : 0.f, cc == R.y,
+                                  R));
+      ++cc;
+    }
+  }
+  store_pack(a.ds + i, out);
+}
+
+inline bool on_boundary(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The card's SM count (cached per device).
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev];
+}
+
+// The launch: one logit a thread while 16-byte vectors would leave the
+// card's schedulers short of threads (fewer than kBwdFillThreads an SM),
+// else vectors of W = 16 / itemsize after a scalar head that takes s to
+// its 16-byte boundary, if every tensor is on its own boundary there
+// (teacher elements: W of them); tensors whose skews differ take one logit
+// a thread.  Decided from the shapes, the card and the pointers, so a CUDA
+// graph replays it.  width: 0 plans, 1 or W overrides the fill choice (for
+// tests and timing).
+template <typename T, typename Teacher, bool kBuffer>
+int launch_bwd_plan(const GradArgs<T, Teacher, kBuffer>& a, int rows,
+                    int width, cudaStream_t st) {
+  using E = typename Teacher::Elem;
+  constexpr int W = 16 / static_cast<int>(sizeof(T));  // logits a vector
+  static_assert(kBwdThreads >= 2 * W, "block 0 takes the head and the tail");
+  const size_t n = static_cast<size_t>(rows) * a.V;
+  if (width == 0)
+    width = n / W < static_cast<size_t>(sm_count()) * kBwdFillThreads ? 1 : W;
+  if (width != 1 && width != W) return static_cast<int>(cudaErrorInvalidValue);
+  size_t head = 0;
+  if (width == W) {
+    head = (16 - reinterpret_cast<uintptr_t>(a.s) % 16) % 16 / sizeof(T);
+    if (head > n) head = n;
+    if (!(on_boundary(a.s + head, 16) &&
+          on_boundary(a.teacher.data() + head, W * sizeof(E)) &&
+          (!kBuffer || on_boundary(a.b + head, 16)) &&
+          on_boundary(a.ds + head, 16))) {
+      width = 1;
+      head = 0;
+    }
+  }
+  const size_t nvec = (n - head) / width;
+  const size_t blocks = nvec == 0 ? 1 : (nvec + kBwdThreads - 1) / kBwdThreads;
+  if (blocks > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(blocks);
+  if (width == 1)
+    kd_grad_kernel<T, Teacher, kBuffer, 1>
+        <<<grid, kBwdThreads, 0, st>>>(a, n, head, nvec);
+  else
+    kd_grad_kernel<T, Teacher, kBuffer, W>
+        <<<grid, kBwdThreads, 0, st>>>(a, n, head, nvec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename Teacher>
 int launch_bwd(const void* labels, const void* g, const void* stats,
                const void* s, const Teacher& teacher, const void* b, void* ds,
                int rows, int V, float tau, float inv_tau, float mean_scale,
-               cudaStream_t st) {
-  const dim3 grid(rows, (V + kThreads * kUnroll - 1) / (kThreads * kUnroll));
+               int width, cudaStream_t st) {
   const auto* y = static_cast<const int64_t*>(labels);
   const auto* gp = static_cast<const float*>(g);
   const auto* sp = static_cast<const float*>(stats);
   const auto* lp = static_cast<const T*>(s);
   const auto* bp = static_cast<const T*>(b);
   auto* out = static_cast<T*>(ds);
-  if (b != nullptr) {
-    kd_grad_kernel<T, Teacher, true><<<grid, kThreads, 0, st>>>(
-        y, gp, sp, lp, teacher, bp, out, V, tau, inv_tau, mean_scale);
-  } else {
-    kd_grad_kernel<T, Teacher, false><<<grid, kThreads, 0, st>>>(
-        y, gp, sp, lp, teacher, bp, out, V, tau, inv_tau, mean_scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const uint64_t magic =
+      V > 1 ? static_cast<uint64_t>((static_cast<unsigned __int128>(1) << 64) /
+                                    static_cast<unsigned>(V)) + 1
+            : 0;
+  if (b != nullptr)
+    return launch_bwd_plan<T, Teacher, true>(
+        GradArgs<T, Teacher, true>{magic, y, gp, sp, lp, teacher, bp, out, V,
+                                   tau, inv_tau, mean_scale},
+        rows, width, st);
+  return launch_bwd_plan<T, Teacher, false>(
+      GradArgs<T, Teacher, false>{magic, y, gp, sp, lp, teacher, bp, out, V,
+                                  tau, inv_tau, mean_scale},
+      rows, width, st);
 }
 
 QuantTeacher quant_teacher(const void* codes, const void* scale,
@@ -817,12 +1068,17 @@ extern "C" int kd_stats_fwd(const void* labels, const void* s, const void* t,
 }
 
 // As kd_stats_fwd, plus g (rows,) f32 and the forward's stats; ds (rows, V)
-// of s's dtype.  Needs ceil(V / 1024) <= 65535 (the wrapper checks).
+// of s's dtype, written once in one flat pass over the rows * V logits.
+// width 0 takes launch_bwd_plan's choice; 1 (one logit a thread) or W = 16
+// / itemsize (16-byte vectors, which tensors of differing skews still turn
+// into one logit a thread) overrides it, for tests and timing; other values
+// return cudaErrorInvalidValue.  Views at any storage offset are taken; no
+// byte outside s, t, b or ds is touched.
 extern "C" int kd_grad_bwd(const void* labels, const void* g,
                            const void* stats, const void* s, const void* t,
                            const void* b, void* ds, int rows, int V, float tau,
                            float inv_tau, float mean_scale, int is_bf16,
-                           void* stream) {
+                           int width, void* stream) {
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16
@@ -830,11 +1086,11 @@ extern "C" int kd_grad_bwd(const void* labels, const void* g,
                    labels, g, stats, s,
                    ExactTeacher<__nv_bfloat16>{
                        static_cast<const __nv_bfloat16*>(t)},
-                   b, ds, rows, V, tau, inv_tau, mean_scale, st)
+                   b, ds, rows, V, tau, inv_tau, mean_scale, width, st)
              : launch_bwd<float>(
                    labels, g, stats, s,
                    ExactTeacher<float>{static_cast<const float*>(t)}, b, ds,
-                   rows, V, tau, inv_tau, mean_scale, st);
+                   rows, V, tau, inv_tau, mean_scale, width, st);
 }
 
 // As kd_stats_fwd with the teacher given as codes (rows, V) int8 and
@@ -860,13 +1116,14 @@ extern "C" int kd_quant_grad_bwd(const void* labels, const void* g,
                                  const void* codes, const void* scale,
                                  const void* zero, const void* b, void* ds,
                                  int rows, int V, float tau, float inv_tau,
-                                 float mean_scale, int is_bf16, void* stream) {
+                                 float mean_scale, int is_bf16, int width,
+                                 void* stream) {
   if (rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const QuantTeacher t = quant_teacher(codes, scale, zero);
   return is_bf16 ? launch_bwd<__nv_bfloat16>(labels, g, stats, s, t, b, ds,
                                              rows, V, tau, inv_tau, mean_scale,
-                                             st)
+                                             width, st)
                  : launch_bwd<float>(labels, g, stats, s, t, b, ds, rows, V,
-                                     tau, inv_tau, mean_scale, st);
+                                     tau, inv_tau, mean_scale, width, st);
 }

@@ -10,8 +10,11 @@ registers.  It is built at first use by ``repro_torch.kernels.build`` and
 bound with ``ctypes``; nothing is built or loaded when this module is
 imported.  The forward pair runs one of two paths, planned from the shapes
 alone (:func:`plan`: a warp a row up to ``WARP_MAX_V`` columns, a block a
-row above), so a CUDA graph replays the wrappers.  ``assemble_loss`` turns
-the stats into the per-row loss, as in the JAX package.
+row above); the backward pair is one flat pass over the logits, in 16-byte
+vectors or one logit a thread, its split decided by the C side from the
+shapes, the card and the pointers; so a CUDA graph replays the wrappers.
+``assemble_loss`` turns the stats into the per-row loss, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -27,7 +30,13 @@ from repro_torch.kernels import build as _build
 
 N_STATS = 11  # [lse_s, s_y, lse_st, lse_tt, E_t[t/tau], E_t[s/tau], lse_bt, E_b[b/tau], E_b[s/tau], 0, 0]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_COLS_PER_BLOCK = 1024  # the backward's column chunk (256 threads x 4)
+# The backward's launch (``csrc/kd_loss.cu``'s kBwdThreads and
+# kBwdFillThreads): one flat pass over rows x V, a block of BWD_THREADS
+# threads, each taking one vector of 16 bytes of s (4 f32 or 8 bf16
+# logits), or one logit while vectors would give the card's SMs fewer than
+# BWD_FILL_THREADS threads each (the C side decides, from the pointers too).
+BWD_THREADS = 128
+BWD_FILL_THREADS = 128
 
 # The forward's plan (``csrc/kd_loss.cu``).  Up to WARP_MAX_V columns a row
 # takes one warp, WARP_ROWS rows a block; above, one block of BLOCK_WARPS
@@ -85,13 +94,14 @@ def _library():
     lib.kd_stats_fwd.argtypes = [ptr] * 5 + [i32, i32, f32, i32, i32, i32,
                                              ptr]
     lib.kd_stats_fwd.restype = i32
-    lib.kd_grad_bwd.argtypes = [ptr] * 7 + [i32, i32, f32, f32, f32, i32, ptr]
+    lib.kd_grad_bwd.argtypes = [ptr] * 7 + [i32, i32, f32, f32, f32, i32,
+                                            i32, ptr]
     lib.kd_grad_bwd.restype = i32
     lib.kd_quant_stats_fwd.argtypes = [ptr] * 7 + [i32, i32, f32, i32, i32,
                                                    i32, ptr]
     lib.kd_quant_stats_fwd.restype = i32
     lib.kd_quant_grad_bwd.argtypes = [ptr] * 9 + [i32, i32, f32, f32, f32,
-                                                  i32, ptr]
+                                                  i32, i32, ptr]
     lib.kd_quant_grad_bwd.restype = i32
     return lib
 
@@ -128,8 +138,9 @@ def _check(labels, s, t, b, name):
         raise ValueError(f"labels {tuple(labels.shape)} do not match "
                          f"{s.shape[0]} rows")
     rows, v = s.shape
-    if rows >= 2 ** 31 or -(-v // _COLS_PER_BLOCK) > 65535:
-        raise ValueError(f"({rows}, {v}) logits exceed the kernel's grid")
+    if rows >= 2 ** 31 or v >= 2 ** 31:
+        raise ValueError(f"({rows}, {v}) logits exceed the kernels' int "
+                         f"rows and columns")
     for what, x in [("labels", labels), ("student", s)] + named[1:]:
         if not x.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
@@ -203,19 +214,33 @@ def kd_stats_fwd(labels, s, t, b, tau, path=None):
     return stats
 
 
-def kd_grad_bwd(labels, g, stats, s, t, b, tau, mean_scale):
+def _ds_like(s):
+    """An empty tensor like ``s`` whose first byte lies as far past a
+    16-byte boundary as ``s``'s does, so that a student, teacher and buffer
+    that share a skew keep the backward's 16-byte vectors."""
+    skew = s.data_ptr() % 16 // s.element_size()
+    return torch.empty(skew + s.numel(), dtype=s.dtype,
+                       device=s.device)[skew:].view(s.shape)
+
+
+def kd_grad_bwd(labels, g, stats, s, t, b, tau, mean_scale, width=None):
     """Student gradient (rows, V) in ``s``'s dtype from the forward's
     ``stats`` and the per-row cotangent ``g`` (rows,) f32, scaled by
-    ``mean_scale``.  Every launch adds one to ``kd_grad_bwd.launches``."""
+    ``mean_scale``; one flat pass over the logits (views at any storage
+    offset are taken).  ``width`` (1, or 16 bytes of logits) overrides the
+    C side's choice of logits a thread, for tests and timing; tensors whose
+    skews differ still take one.  Every launch adds one to
+    ``kd_grad_bwd.launches``."""
     _check(labels, s, t, b, "kd_grad_bwd")
     _check_grad_inputs(s, g, stats)
     rows, v = s.shape
-    ds = torch.empty_like(s)
+    ds = _ds_like(s)
     err = _library().kd_grad_bwd(
         labels.data_ptr(), g.data_ptr(), stats.data_ptr(), s.data_ptr(),
         t.data_ptr(), b.data_ptr() if b is not None else None, ds.data_ptr(),
         rows, v, float(tau), 1.0 / float(tau), float(mean_scale),
-        _DTYPES[s.dtype], torch.cuda.current_stream(s.device).cuda_stream)
+        _DTYPES[s.dtype], width or 0,
+        torch.cuda.current_stream(s.device).cuda_stream)
     if err:
         raise RuntimeError(f"kd_grad_bwd launch failed: CUDA error {err}")
     kd_grad_bwd.launches += 1
@@ -247,21 +272,21 @@ def kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau, path=None):
 
 
 def kd_quant_grad_bwd(labels, g, stats, s, codes, scale, zero, b, tau,
-                      mean_scale):
+                      mean_scale, width=None):
     """The student gradient of :func:`kd_grad_bwd` with the teacher given
-    as in :func:`kd_quant_stats_fwd`.  Every launch adds one to
-    ``kd_quant_grad_bwd.launches``."""
+    as in :func:`kd_quant_stats_fwd`; ``width`` as in :func:`kd_grad_bwd`.
+    Every launch adds one to ``kd_quant_grad_bwd.launches``."""
     _check(labels, s, None, b, "kd_quant_grad_bwd")
     _check_payload(s, codes, scale, zero)
     _check_grad_inputs(s, g, stats)
     rows, v = s.shape
-    ds = torch.empty_like(s)
+    ds = _ds_like(s)
     err = _library().kd_quant_grad_bwd(
         labels.data_ptr(), g.data_ptr(), stats.data_ptr(), s.data_ptr(),
         codes.data_ptr(), scale.data_ptr(), zero.data_ptr(),
         b.data_ptr() if b is not None else None, ds.data_ptr(), rows, v,
         float(tau), 1.0 / float(tau), float(mean_scale), _DTYPES[s.dtype],
-        torch.cuda.current_stream(s.device).cuda_stream)
+        width or 0, torch.cuda.current_stream(s.device).cuda_stream)
     if err:
         raise RuntimeError(f"kd_quant_grad_bwd launch failed: CUDA error "
                            f"{err}")

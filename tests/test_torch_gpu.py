@@ -754,6 +754,178 @@ def test_kd_forward_wrappers_replay_from_a_cuda_graph(cuda, v):
     assert not any(torch.equal(o, w) for o, w in zip(out, before))
 
 
+# -- the backward pair's flat pass: offsets, edges, launches, graph replay --
+
+
+def _bwd_case(device, rows, v, dtype, buffer, seed):
+    """Backward inputs of one draw: labels, g, s, t, b (None without
+    buffer) and the int8 payload (codes, scale, zero) of t."""
+    labels, s, t, b, g = _kd_case(device, rows, v, dtype, buffer, seed)
+    codec = codecs.parse_codec("int8").transform
+    # a payload cannot carry the -1e30 pad columns (their affine would
+    # swamp the row's): the teacher's pad columns are encoded as 0
+    p = codec.encode(torch.where(t.float() > -1e29, t.float(), 0.0))
+    return (labels, g, s, t, b, codec.unpack_codes(p["codes"], v), p["scale"],
+            p["zero"])
+
+
+def _bwd_pair(labels, g, s, t, b, codes, scale, zero, tau=2.0, **kw):
+    """Both backward wrappers and their plain versions, each from its
+    plain stats: ((got, want), (got_q, want_q))."""
+    ms = 1.0 / s.shape[0]
+    st = ref.kd_stats_ref(labels, s, t, b, tau)
+    st_q = ref.kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau)
+    return ((kd.kd_grad_bwd(labels, g, st, s, t, b, tau, ms, **kw),
+             ref.kd_grad_ref(labels, g, st, s, t, b, tau, ms)),
+            (kd.kd_quant_grad_bwd(labels, g, st_q, s, codes, scale, zero, b,
+                                  tau, ms, **kw),
+             ref.kd_quant_grad_ref(labels, g, st_q, s, codes, scale, zero, b,
+                                   tau, ms)))
+
+
+def _bwd_into(ds, labels, g, s, t, b, codes, scale, zero, quant, width,
+              tau=2.0):
+    """A backward C entry point, called as its wrapper calls it with
+    ``width``, writing into ``ds`` (a view anywhere in a larger buffer);
+    returns the plain version's gradient."""
+    rows, v = s.shape
+    lib = kd._library()
+    bp = b.data_ptr() if b is not None else None
+    tail = (rows, v, tau, 1.0 / tau, 1.0 / rows, kd._DTYPES[s.dtype],
+            width or 0, torch.cuda.current_stream().cuda_stream)
+    if quant:
+        st = ref.kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau)
+        err = lib.kd_quant_grad_bwd(
+            labels.data_ptr(), g.data_ptr(), st.data_ptr(), s.data_ptr(),
+            codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), bp,
+            ds.data_ptr(), *tail)
+        want = ref.kd_quant_grad_ref(labels, g, st, s, codes, scale, zero, b,
+                                     tau, 1.0 / rows)
+    else:
+        st = ref.kd_stats_ref(labels, s, t, b, tau)
+        err = lib.kd_grad_bwd(labels.data_ptr(), g.data_ptr(), st.data_ptr(),
+                              s.data_ptr(), t.data_ptr(), bp, ds.data_ptr(),
+                              *tail)
+        want = ref.kd_grad_ref(labels, g, st, s, t, b, tau, 1.0 / rows)
+    assert err == 0
+    return want
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("offsets", [(1, 5, 11, 13, 7), (15, 2, 7, 3, 9),
+                                     (8, 14, 1, 6, 0), (3, 3, 3, 3, 3),
+                                     (4, 4, 4, 4, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,v", [(129, 100), (3, kd.WARP_MAX_V + 1),
+                                    (2, 49155)])
+def test_kd_backward_reads_and_writes_views_at_any_storage_offset(
+        cuda, rows, v, dtype, offsets):
+    """s, t, b, codes and ds each start 1-15 elements into their storage
+    (NaN, codes 127, before each view), planned and with 16-byte vectors
+    asked for: the body runs on vectors where every tensor shares s's skew
+    (peeling a head; the wrappers' ds takes s's skew), one logit a thread
+    where not; ds's guard bands, before it and after, stay unwritten."""
+    labels, g, s, t, b, codes, scale, zero = _bwd_case(cuda, rows, v, dtype,
+                                                       True, seed=rows + v)
+    os_, ot, ob, oc, od = offsets
+    s, t, b, codes = (_shifted(s, os_), _shifted(t, ot), _shifted(b, ob),
+                      _shifted(codes, oc))
+    assert s.storage_offset() == os_ and codes.storage_offset() == oc
+    tol = TOL[dtype]
+    n, guard = rows * v, 40
+    for width in (None, 16 // s.element_size()):
+        for got, want in _bwd_pair(labels, g, s, t, b, codes, scale, zero,
+                                   width=width):
+            assert torch.isfinite(got.float()).all()
+            assert _rel(got, want) <= tol
+        for quant in (False, True):
+            buf = torch.full((od + n + guard,), float("nan"), dtype=dtype,
+                             device=cuda)
+            before = buf.clone()
+            ds = buf[od:od + n].view(rows, v)
+            want = _bwd_into(ds, labels, g, s, t, b, codes, scale, zero,
+                             quant, width)
+            torch.cuda.synchronize()
+            assert _rel(ds, want) <= tol
+            assert torch.equal(_bits(buf[:od]), _bits(before[:od]))
+            assert torch.equal(_bits(buf[od + n:]), _bits(before[od + n:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("buffer", [False, True])
+@pytest.mark.parametrize("v", [1, 7, 33, 100, 1024, 1025, 49155])
+@pytest.mark.parametrize("rows", [1, 6, 133])
+def test_kd_backward_at_the_edges(cuda, rows, v, buffer, dtype):
+    """V below a vector's width (rows end several times inside a vector),
+    V = 100 (bf16 vectors cross every other row end), V on either side of
+    1,024 and the LLM vocabulary; each wrapper launches once a call."""
+    inputs = _bwd_case(cuda, rows, v, dtype, buffer, seed=5 * rows + v)
+    before = (kd.kd_grad_bwd.launches, kd.kd_quant_grad_bwd.launches)
+    pairs = _bwd_pair(*inputs)
+    torch.cuda.synchronize()
+    assert (kd.kd_grad_bwd.launches, kd.kd_quant_grad_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, want in pairs:
+        assert got.dtype == dtype and got.shape == (rows, v)
+        assert torch.isfinite(got.float()).all()
+        assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,v", [(133, 100), (6, kd.WARP_MAX_V + 1),
+                                    (3, 7), (512, 1024)])
+def test_kd_backward_launches_agree_bit_for_bit(cuda, rows, v, dtype):
+    """Every logit is computed alone, so either width (16 bytes of logits
+    or one) writes the same bits as the planned launch; a width the C side
+    cannot run is refused."""
+    inputs = _bwd_case(cuda, rows, v, dtype, True, seed=rows)
+    planned = [got for got, _ in _bwd_pair(*inputs)]
+    w = 16 // torch.empty(0, dtype=dtype).element_size()
+    for width in (1, w):
+        got = [g for g, _ in _bwd_pair(*inputs, width=width)]
+        assert all(torch.equal(a, b) for a, b in zip(got, planned)), width
+    for width in (2, 2 * w, -1):
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            _bwd_pair(*inputs, width=width)
+
+
+@pytest.mark.parametrize("v", [100, kd.WARP_MAX_V + 1, 49155])
+def test_kd_backward_wrappers_replay_from_a_cuda_graph(cuda, v):
+    """The launch is decided from shapes and pointers alone: a graph
+    captured once replays both wrappers on new values copied into the same
+    tensors and equals eager launches bit for bit."""
+    rows, tau = 24, 2.0
+    first = list(_bwd_case(cuda, rows, v, torch.bfloat16, True, 1))
+    second = _bwd_case(cuda, rows, v, torch.bfloat16, True, 2)
+    labels, g, s, t, b, codes, scale, zero = first
+    st = ref.kd_stats_ref(labels, s, t, b, tau)
+    st_q = ref.kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau)
+
+    def both():
+        return (kd.kd_grad_bwd(labels, g, st, s, t, b, tau, 0.5),
+                kd.kd_quant_grad_bwd(labels, g, st_q, s, codes, scale, zero, b,
+                                     tau, 0.5))
+
+    before = both()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    for have, new in zip(first, second):
+        have.copy_(new)
+    st.copy_(ref.kd_stats_ref(labels, s, t, b, tau))
+    st_q.copy_(ref.kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = both()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert not any(torch.equal(o, w) for o, w in zip(out, before))
+
+
 def test_int8_federated_round_on_card_matches_cpu_and_runs_the_quant_kernels(
         cuda):
     """One quickstart bkd round with int8 uplink transport, f32 with TF32
