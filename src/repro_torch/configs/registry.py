@@ -16,15 +16,19 @@ ARCHS = {
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
 }
 
-# Registered in the JAX package, waiting for their sub-blocks to be ported
-# (M-RoPE, MoE, qk-norm and QKV-bias configs, encoder front-ends; ROADMAP
-# queue 1).
-NOT_PORTED = (
-    "qwen2-vl-72b", "hubert-xlarge", "qwen3-14b", "nemotron-4-340b",
-    "qwen1.5-4b", "kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b",
-)
+# Registered in the JAX package, waiting for their sub-blocks to be ported;
+# each names the ROADMAP.md queue 1 slice it waits for.
+NOT_PORTED = {
+    "hubert-xlarge": "slice 4: the encoder front-end",
+    "kimi-k2-1t-a32b": "slice 3, the rest: MoE",
+    "phi3.5-moe-42b-a6.6b": "slice 3, the rest: MoE",
+}
 
 
 SUBQUADRATIC = {"recurrentgemma-9b", "mamba2-370m"}
@@ -37,8 +41,8 @@ def list_archs():
 
 def _module(arch):
     if arch in NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported to PyTorch yet; ported: "
-                       f"{sorted(ARCHS)} (see ROADMAP.md queue 1)")
+        raise KeyError(f"arch {arch!r} is not ported to PyTorch yet (ROADMAP.md "
+                       f"queue 1, {NOT_PORTED[arch]}); ported: {sorted(ARCHS)}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(ARCHS[arch])

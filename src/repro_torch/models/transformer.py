@@ -54,7 +54,7 @@ class LMConfig:
     causal: bool = True
     qk_norm: bool = False
     qkv_bias: bool = False
-    rope: str = "rope"               # "rope" | "none"
+    rope: str = "rope"               # "rope" | "mrope" | "none"
     rope_theta: float = 10000.0
     window: Optional[int] = None     # window for "local" attention sub-blocks
     sliding_window: Optional[int] = None  # if set, ALL attention is windowed
@@ -65,6 +65,8 @@ class LMConfig:
     d_rnn: Optional[int] = None
     conv_width: int = 4
     is_encoder: bool = False
+    is_vlm: bool = False             # vision patch embeds scattered into the sequence
+    mrope_sections: tuple = (16, 24, 24)
     dtype: str = "bfloat16"          # activation dtype
     param_dtype: str = "bfloat16"
     ring_cache: bool = False
@@ -101,7 +103,8 @@ class LMConfig:
             d_model=self.d_model, num_heads=self.num_heads,
             kv_heads=self.kv_heads, head_dim=self.hd, causal=self.causal,
             window=window, qk_norm=self.qk_norm, qkv_bias=self.qkv_bias,
-            rope=self.rope, rope_theta=self.rope_theta, q_chunk=self.q_chunk,
+            rope=self.rope, rope_theta=self.rope_theta,
+            mrope_sections=self.mrope_sections, q_chunk=self.q_chunk,
             ring_cache=self.ring_cache)
 
     def ssd_cfg(self) -> ssm_lib.SSDConfig:
@@ -328,12 +331,22 @@ class Transformer:
 
     @staticmethod
     def _embed_inputs(cfg: LMConfig, params, batch):
+        """Token embeddings, with a VLM's ``vision_embeds`` (B, P, d)
+        written over the rows ``vision_positions`` (B, P) names, and the
+        rotary positions: ``batch["positions"]``, else the token index,
+        (B, S), or (B, 3, S) under M-RoPE."""
         x = L.embedding(params["embed"], batch["tokens"]).to(cfg.adt)
+        if cfg.is_vlm and "vision_embeds" in batch:
+            rows = torch.arange(x.shape[0], device=x.device)[:, None]
+            x[rows, batch["vision_positions"].long()] = \
+                batch["vision_embeds"].to(cfg.adt)
         positions = batch.get("positions")
         if positions is None:
             bsz, slen = x.shape[0], x.shape[1]
             positions = torch.arange(slen, dtype=torch.int32,
                                      device=x.device).expand(bsz, slen)
+            if cfg.rope == "mrope":
+                positions = positions[:, None, :].expand(bsz, 3, slen)
         return x, positions
 
     @staticmethod
@@ -368,12 +381,13 @@ class Transformer:
     def decode_step(cfg: LMConfig, params, caches, token, pos, positions=None):
         """One token per row against the dense caches (updated in place).
         token: (B, 1) int; pos: a scalar or (B,) int32, every row at its own
-        position; positions: RoPE positions (B, 1), pos by default."""
+        position; positions: rotary positions (B, 1), or (B, 3, 1) under
+        M-RoPE, pos by default."""
         x, _ = Transformer._embed_inputs(cfg, params, {"tokens": token})
         pos = torch.as_tensor(pos, dtype=torch.int32,
                               device=x.device).expand(x.shape[0])
         if positions is None:
-            positions = pos[:, None]
+            positions = attn_lib.decode_positions(cfg.rope, pos)
         for kind, p, cache in _sub_blocks(cfg, params, caches):
             x, _ = _subblock_decode(cfg, kind, p, cache, x, pos, positions)
         return Transformer._unembed(cfg, params, x), caches
@@ -458,7 +472,7 @@ class Transformer:
         token: (B, 1) int; pos: (B,) int32; pt: (B, PP) int32; ``active``
         (B,) bool redirects inactive rows' cache writes to the trash page."""
         x, _ = Transformer._embed_inputs(cfg, params, {"tokens": token})
-        positions = pos[:, None]
+        positions = attn_lib.decode_positions(cfg.rope, pos)
         for kind, p, pool in _sub_blocks(cfg, params, caches):
             x, _ = _paged_subblock_decode(cfg, kind, p, pool, pt, x, pos,
                                           positions, active, page_size)

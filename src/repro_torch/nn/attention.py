@@ -1,6 +1,6 @@
-"""GQA attention with RoPE, qk-norm and sliding windows over a dense (full
-or ring) KV cache or a block-paged KV pool: the serving half of
-``repro.nn.attention``.
+"""GQA attention with RoPE or M-RoPE, qk-norm, QKV bias and sliding windows
+over a dense (full or ring) KV cache or a block-paged KV pool: the serving
+half of ``repro.nn.attention``.
 
 Layouts follow the JAX package: ``wq`` (d, H, D), ``wk``/``wv`` (d, N, D),
 ``wo`` (H, D, d); dense caches (B, W, N, D); pools (P, page_size, N, D).
@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.rope import apply_mrope, apply_rope
 
 NEG_INF = -1e30
 
@@ -33,8 +33,9 @@ class AttnConfig:
     window: Optional[int] = None          # sliding window (None = full)
     qk_norm: bool = False                 # qwen3-style per-head RMS norm
     qkv_bias: bool = False                # qwen1.5-style bias
-    rope: str = "rope"                    # "rope" | "none" (M-RoPE not ported)
+    rope: str = "rope"                    # "rope" | "mrope" | "none"
     rope_theta: float = 10000.0
+    mrope_sections: tuple = (16, 24, 24)
     q_chunk: int = 512
     ring_cache: bool = False              # windowed decode: cache only the
                                           # last `window` K/V in a ring buffer
@@ -68,9 +69,19 @@ def _project_qkv(params, cfg: AttnConfig, x, positions):
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope != "none":
-        raise NotImplementedError(f"rope={cfg.rope!r} is not ported yet")
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
     return q, k, v
+
+
+def decode_positions(rope: str, pos):
+    """A decode step's rotary positions from its (B,) ``pos``: (B, 1), or
+    (B, 3, 1) under M-RoPE (a text token: every stream at ``pos``)."""
+    positions = pos[:, None]
+    if rope == "mrope":
+        positions = positions[:, None, :].expand(-1, 3, -1)
+    return positions
 
 
 def _attend_chunk(q, k, v, q_pos, k_pos, cfg: AttnConfig):
@@ -178,9 +189,9 @@ def decode_step(params, cfg: AttnConfig, cache, x, pos, positions=None):
     """One token per row against a dense cache (updated in place).  x:
     (B, 1, D); pos: a scalar or (B,) int (the serving engine's per-slot
     path: every row writes its cache and attends at its own position);
-    positions: RoPE positions (B, 1), pos by default.  With a ring cache
-    (``ring_cache`` and a window no shorter than the cache) row b writes
-    slot pos % W.
+    positions: rotary positions (B, 1) or (B, 3, 1) under M-RoPE, pos by
+    default.  With a ring cache (``ring_cache`` and a window no shorter
+    than the cache) row b writes slot pos % W.
 
     The attention runs through :func:`repro_torch.kernels.ops.swa_decode_attn`
     (the ``swa_decode`` kernel on the card), which keeps f32 from QK through
@@ -190,7 +201,7 @@ def decode_step(params, cfg: AttnConfig, cache, x, pos, positions=None):
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(b)
     if positions is None:
-        positions = pos[:, None]
+        positions = decode_positions(cfg.rope, pos)
     q, k, v = _project_qkv(params, cfg, x, positions)
     t = cache["k"].shape[1]
     ring = cfg.ring_cache and cfg.window is not None and t <= cfg.window
@@ -268,7 +279,7 @@ def paged_decode_step(params, cfg: AttnConfig, pool, pt, x, pos,
     through :func:`repro_torch.kernels.ops.paged_decode_attn`."""
     b = x.shape[0]
     if positions is None:
-        positions = pos[:, None]
+        positions = decode_positions(cfg.rope, pos)
     q, k, v = _project_qkv(params, cfg, x, positions)
     rows = torch.arange(b, device=x.device)
     page = pt.long()[rows, (pos // page_size).long()]

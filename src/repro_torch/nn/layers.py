@@ -17,13 +17,36 @@ _TRUNC_LO = math.erf(-2.0 / math.sqrt(2.0))
 _TRUNC_HI = math.erf(2.0 / math.sqrt(2.0))
 
 
-def trunc_normal(shape, std, dtype, device, generator):
-    """``std * N(0, 1)`` truncated to [-2, 2], drawn in f32 then cast (the
-    JAX ``_trunc_normal``; bits differ, the distribution does not)."""
+#: Largest f32 draw ``trunc_normal`` makes at once: a larger tensor is
+#: filled piece by piece along its leading axes, so that a full-width
+#: stacked weight costs its own dtype's bytes plus at most this much.
+DRAW_BYTES = 1 << 30
+
+
+def _draw(shape, std, device, generator):
     t = torch.empty(shape, dtype=torch.float32, device=device)
     t.uniform_(_TRUNC_LO, _TRUNC_HI, generator=generator)
-    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-    return t.mul_(std).to(dtype)
+    return t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
+
+
+def _fill(out, std, generator):
+    if out.numel() * 4 <= DRAW_BYTES:
+        out.copy_(_draw(out.shape, std, out.device, generator))
+        return
+    row = out[0].numel() * 4
+    pieces = out if row > DRAW_BYTES else out.split(DRAW_BYTES // row)
+    for piece in pieces:
+        _fill(piece, std, generator)
+
+
+def trunc_normal(shape, std, dtype, device, generator):
+    """``std * N(0, 1)`` truncated to [-2, 2], drawn in f32 then cast (the
+    JAX ``_trunc_normal``; bits differ, the distribution does not).  A
+    tensor of more than ``DRAW_BYTES`` of f32 is drawn in pieces along its
+    leading axes, in order, from the same generator."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    _fill(out, std, generator)
+    return out
 
 
 def dense(params, x):

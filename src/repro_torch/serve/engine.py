@@ -160,6 +160,8 @@ def make_paged_admit_step(cfg: LMConfig, max_len: int, sampler, page_size: int):
         start = npp * page_size
         positions = (start + torch.arange(length, dtype=torch.int32,
                                           device=prompts.device)).expand(b, length)
+        if cfg.rope == "mrope":
+            positions = positions[:, None, :].expand(b, 3, length)
         logits, caches = Transformer.paged_prefill(
             cfg, params, {"tokens": prompts, "positions": positions},
             caches, pt, lengths, fill, npp, page_size)

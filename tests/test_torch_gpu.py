@@ -227,6 +227,43 @@ def test_swa_kernel_matches_ref(cuda, dtype, case):
     assert err <= TOL[dtype] * max(want.float().abs().max().item(), 1.0), err
 
 
+# The four dense archs the engines serve on the decode kernels, at their
+# (N KV heads, G query groups, D): qwen3-14b (8, 5, 128), qwen1.5-4b (20,
+# 1, 128), nemotron-4-340b (8, 12, 192), qwen2-vl-72b (8, 8, 128).
+DENSE_ARCHS = ("qwen3-14b", "qwen1.5-4b", "nemotron-4-340b", "qwen2-vl-72b")
+
+
+def _decode_heads(arch):
+    cfg = registry.get_config(arch)
+    return cfg.kv_heads, cfg.num_heads // cfg.kv_heads, cfg.hd
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_decode_kernels_at_the_dense_archs_heads(cuda, arch, dtype, window):
+    """Both decode kernels on a 4-slot x 512-position cache at each arch's
+    heads, against their plain versions."""
+    n, g, d = _decode_heads(arch)
+    q, kc, vc, pos = _swa_case(7, cuda, n=n, g=g, d=d, pos=[0, 170, 341, 511])
+    q, kc, vc = q.to(dtype), kc.to(dtype), vc.to(dtype)
+    got = ops.swa_decode_attn(q, kc, vc, pos, window=window)
+    want = ref.swa_decode_ref(q, kc, vc, pos, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(want.float().abs().max().item(), 1.0), err
+    q, kp, vp, pt, pos = _case(8, cuda, n=n, g=g, d=d, ps=16, pp=32)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    before = paged_decode.launches
+    got = ops.paged_decode_attn(q, kp, vp, pt, pos, window=window)
+    torch.cuda.synchronize()
+    assert paged_decode.launches == before + 1
+    want = ref.paged_decode_ref(q, kp, vp, pt, pos, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
 def _capture(fn):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
