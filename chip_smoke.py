@@ -136,7 +136,34 @@ together; each prints its kernels' registers and spills), then:
               on the CPU from the same weights: greedy tokens equal; and
               qwen2-vl's prefill with vision embeddings on three position
               streams, logits card vs CPU within 1e-4;
-25. kernels   prints one JSON line per the port's kernel table (eight
+25. serve moe   phi3.5-moe-42b-a6.6b and kimi-k2-1t-a32b at full width in
+              bf16 on phase 3's stream, dense and then paged, with the depth
+              cut to what one card holds (printed: phi 27 of 32 layers,
+              kimi 1 of 61), the parameter bytes counted from the shapes
+              (experts, shared experts, f32 router) equal to the drawn
+              tensors', checking launches == layers x ticks for the decode
+              kernel in use and none for the other;
+26. moe parity    both MoE SMOKE configs in f32 (TF32 off) served dense and
+              paged on the card and on the CPU from the same weights:
+              greedy tokens equal (dense and paged are not compared: the
+              experts' capacity couples a batch's rows);
+27. llm phase2    ``repro_torch.launch.train --full --arch granite-3-2b
+              --method bkd`` on the card (bf16, AdamW, 2 rounds of 3 steps a
+              phase, batch 8 x 64 tokens): Phase 0/1/2 seconds, Phase-2
+              steps/s and peak memory, the kd pair launched once a Phase-2
+              step each; the pair held against its plain version on the
+              first Phase-2 step's own inputs (512 x 49,408 f32, 253 pad
+              columns at -1e30, with buffer; f32 limit 1e-5); then the
+              Phase-2 step with the kd pair ('pallas') against the plain
+              loss ('jnp') in turns on one set of weights;
+28. llm parity    the LLM driver on granite's and phi3.5-moe's SMOKE configs
+              (f32, TF32 off) on the card and on the CPU from one start
+              state: every printed loss and the final NLL within 2e-4;
+29. kernels bench the port's ``kernels_bench`` on the card (the kd pair
+              against the plain loss's autograd at 256 x 8,192, the
+              gradient within 1e-5 of its largest entry; ``rglru`` and
+              ``ssd`` against their plain versions);
+30. kernels   prints one JSON line per the port's kernel table (eight
               kernels).
 
 Each phase's seconds are printed (``[time]``).
@@ -150,8 +177,10 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -167,7 +196,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.benchmarks import (fig4_main, fig5_forget,  # noqa: E402
                                     fig7_aggregation, fig9_straggler,
-                                    phase2_bench, transport_bench)
+                                    kernels_bench, phase2_bench,
+                                    transport_bench)
 from repro_torch.benchmarks import run as fig_run  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.resnet32_cifar import RESNET32  # noqa: E402
@@ -175,7 +205,7 @@ from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core.distill_engine import DistillEngine  # noqa: E402
 from repro_torch.core.fl import FederatedKD, FLConfig, resnet_adapter  # noqa: E402
 from repro_torch.data import (Dataset, dirichlet_partition,  # noqa: E402
-                              make_cifar_like)
+                              make_cifar_like, make_token_stream)
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.interop import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -187,9 +217,12 @@ from repro_torch.kernels import rglru as rglru_mod  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.kernels import swa_decode as swa_mod  # noqa: E402
 from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
+from repro_torch.launch import steps as St  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import summarize  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.nn import attention  # noqa: E402
+from repro_torch.optim import optimizers  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, build_stream  # noqa: E402
 from repro_torch.serve.paged import pages_for  # noqa: E402
 from repro_torch.transport import parse_codec  # noqa: E402
@@ -742,27 +775,32 @@ def _check_kd(rows, v, dtype, buffer, pad, seed):
     gradient against the plain path.  Returns the max abs errors of
     (stats, ds) and the relative ones."""
     y, s, t, b, g = _kd_inputs(rows, v, dtype, buffer, pad, seed)[0]
-    stats = kd_mod.kd_stats_fwd(y, s, t, b, TAU)
-    ds = kd_mod.kd_grad_bwd(y, g, stats, s, t, b, TAU, 1.0 / rows)
+    return _check_kd_on(f"rows={rows} V={v} {str(dtype).split('.')[-1]} "
+                        f"buffer={buffer} pad={pad}", y, s, t, b, g, TAU)
+
+
+def _check_kd_on(name, y, s, t, b, g, tau):
+    """``_check_kd`` on given inputs (labels, s, t, b, row weights g)."""
+    rows, v = s.shape
+    stats = kd_mod.kd_stats_fwd(y, s, t, b, tau)
+    ds = kd_mod.kd_grad_bwd(y, g, stats, s, t, b, tau, 1.0 / rows)
     torch.cuda.synchronize()
-    want = kref.kd_stats_ref(y, s, t, b, TAU)
-    want_ds = kref.kd_grad_ref(y, g, want, s, t, b, TAU, 1.0 / rows)
+    want = kref.kd_stats_ref(y, s, t, b, tau)
+    want_ds = kref.kd_grad_ref(y, g, want, s, t, b, tau, 1.0 / rows)
     s1 = s.clone().requires_grad_()
-    loss = ops.kd_loss(y, s1, t, b, TAU)
+    loss = ops.kd_loss(y, s1, t, b, tau)
     loss.backward()
     s2 = s.clone().requires_grad_()
-    want_loss = kref.kd_loss_mean_ref(y, s2, t, b, TAU)
+    want_loss = kref.kd_loss_mean_ref(y, s2, t, b, tau)
     want_loss.backward()
     errs = {"stats": _rel_err(stats, want), "ds": _rel_err(ds, want_ds),
             "loss": abs(loss.item() - want_loss.item()) / abs(want_loss.item()),
             "grad": _rel_err(s1.grad, s2.grad)}
-    tol = TOL[dtype]
-    name = (f"rows={rows} V={v} {str(dtype).split('.')[-1]} "
-            f"buffer={buffer} pad={pad}")
+    tol = TOL[s.dtype]
     for what, e in errs.items():
         check(math.isfinite(e) and e <= tol,
               f"kd {what} {name}: relative err {e} > {tol}")
-    check(stats.shape == (rows, kd_mod.N_STATS) and ds.dtype == dtype,
+    check(stats.shape == (rows, kd_mod.N_STATS) and ds.dtype == s.dtype,
           f"kd outputs {tuple(stats.shape)} {ds.dtype}")
     print(f"[kd] {name}: {_kd_plan_line(kd_mod.plan(rows, v))}"
           f"; relative err stats {errs['stats']:.3g}, ds "
@@ -2025,7 +2063,6 @@ def phase_recurrent_parity():
 # -- the dense archs on the layers the port already had ----------------------
 
 DENSE_ARCHS = ("qwen3-14b", "qwen1.5-4b", "nemotron-4-340b", "qwen2-vl-72b")
-L2_BYTES = 50 * 2**20
 # What a full-width serve run needs besides its parameters: the prefill's
 # f32 logits over up to 4 x 256 tokens (1.05 GB at Nemotron's 256,000-token
 # vocabulary) and their bf16 product, the MLP's intermediate, the caches,
@@ -2063,17 +2100,26 @@ def phase_decode_archs():
 
 
 def _param_bytes(cfg):
-    """(bytes a layer, bytes outside the layers) of an attention-only arch
-    with a dense MLP, from its shapes, in its parameter dtype."""
+    """(bytes a layer, bytes outside the layers) of an attention-only arch,
+    from its shapes, in its parameter dtype: a dense MLP, or a MoE's
+    stacked experts (gate, up, down), its shared experts (a gated MLP of
+    ``expert_dim x shared_experts``) and its router, which is f32 in any
+    parameter dtype."""
     d, h, n, hd, ff = (cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.hd,
                        cfg.d_ff)
     attn = 2 * d * h * hd + 2 * d * n * hd
     attn += (h + 2 * n) * hd if cfg.qkv_bias else 0
     attn += 2 * hd if cfg.qk_norm else 0
     norms = 2 * d * (2 if cfg.norm == "layernorm" else 1)
-    mlp = (3 if cfg.mlp == "swiglu" else 2) * d * ff
     size = torch.finfo(cfg.pdt).bits // 8
-    return ((attn + norms + mlp) * size,
+    router = 0
+    if cfg.mlp == "moe":
+        mlp = 3 * cfg.num_experts * d * cfg.expert_dim
+        mlp += 3 * d * cfg.expert_dim * cfg.shared_experts
+        router = d * cfg.num_experts * 4
+    else:
+        mlp = (3 if cfg.mlp == "swiglu" else 2) * d * ff
+    return ((attn + norms + mlp) * size + router,
             (2 * cfg.padded_vocab * d + norms // 2) * size)
 
 
@@ -2167,41 +2213,50 @@ def _vision_batch(cfg, seed=9):
             "vision_embeds": rng.standard_normal((2, 6, cfg.d_model))}
 
 
+def _arch_parity(arch, dense_equals_paged=True):
+    """``arch``'s SMOKE config in f32 (TF32 off), biases and norm scales
+    redrawn: phase 4's stream served dense and paged on the card and on the
+    CPU from the same weights, greedy tokens equal; with
+    ``dense_equals_paged`` the card's dense engine must also equal its paged
+    one (not for MoE archs: their expert capacity couples the rows of a
+    batch, and the two engines batch their prefills differently)."""
+    cfg = registry.get_smoke_config(arch)
+    weights = _redrawn(params_to_numpy(Transformer.init(cfg, 1,
+                                                        device="cpu")), 5)
+    stream = lambda: build_stream(  # noqa: E731
+        "bursty", 10, vocab=cfg.vocab_size, seed=3, prompt_max=40,
+        out_max=16, shared_prefix=16)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        for paged in (False, True):
+            engine = ServeEngine(cfg, params_from_numpy(weights, device),
+                                 slots=3, max_len=96, paged=paged,
+                                 page_size=8, device=device)
+            outs[device, paged] = {r.rid: r.out for r in engine.run(stream())}
+    n_tok = sum(len(o) for o in outs["cpu", False].values())
+    for paged in (False, True):
+        mode = "paged" if paged else "dense"
+        same = sum(outs["cpu", paged][r] == outs["cuda", paged][r]
+                   for r in outs["cpu", paged])
+        print(f"[archs parity] {cfg.name} f32 {mode}: {same}/"
+              f"{len(outs['cpu', paged])} requests ({n_tok} tokens) "
+              f"identical card vs CPU")
+        check(outs["cpu", paged] == outs["cuda", paged],
+              f"archs parity: {cfg.name} {mode} differ card vs CPU")
+    if dense_equals_paged:
+        check(outs["cuda", False] == outs["cuda", True],
+              f"archs parity: {cfg.name} dense vs paged differ on the card")
+    return cfg, weights
+
+
 def phase_archs_parity():
-    """Each dense arch's SMOKE config in f32 (TF32 off), its biases and norm
-    scales redrawn: phase 4's stream served dense and paged on the card and
-    on the CPU from the same weights, greedy tokens equal; qwen2-vl's
+    """Each dense arch's SMOKE config (``_arch_parity``), and qwen2-vl's
     prefill with vision embeddings at three different position streams,
     logits card vs CPU within 1e-4."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for arch in DENSE_ARCHS:
-        cfg = registry.get_smoke_config(arch)
-        weights = _redrawn(params_to_numpy(Transformer.init(cfg, 1,
-                                                            device="cpu")), 5)
-        stream = lambda: build_stream(  # noqa: E731
-            "bursty", 10, vocab=cfg.vocab_size, seed=3, prompt_max=40,
-            out_max=16, shared_prefix=16)
-        outs = {}
-        for device in ("cpu", "cuda"):
-            for paged in (False, True):
-                engine = ServeEngine(cfg, params_from_numpy(weights, device),
-                                     slots=3, max_len=96, paged=paged,
-                                     page_size=8, device=device)
-                outs[device, paged] = {r.rid: r.out
-                                       for r in engine.run(stream())}
-        n_tok = sum(len(o) for o in outs["cpu", False].values())
-        for paged in (False, True):
-            mode = "paged" if paged else "dense"
-            same = sum(outs["cpu", paged][r] == outs["cuda", paged][r]
-                       for r in outs["cpu", paged])
-            print(f"[archs parity] {cfg.name} f32 {mode}: {same}/"
-                  f"{len(outs['cpu', paged])} requests ({n_tok} tokens) "
-                  f"identical card vs CPU")
-            check(outs["cpu", paged] == outs["cuda", paged],
-                  f"archs parity: {cfg.name} {mode} differ card vs CPU")
-        check(outs["cuda", False] == outs["cuda", True],
-              f"archs parity: {cfg.name} dense vs paged differ on the card")
+        cfg, weights = _arch_parity(arch)
         if cfg.is_vlm:
             batch = _vision_batch(cfg)
             logits = {}
@@ -2216,6 +2271,256 @@ def phase_archs_parity():
                   f"embeds (M-RoPE t/h/w streams): max abs logit diff card "
                   f"vs CPU {err:.3g} (limit 1e-4)")
             check(err <= 1e-4, f"{cfg.name}: vision prefill differs by {err}")
+
+
+# -- MoE serving and LLM-scale Phase 2 -----------------------------------------
+
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b")
+
+
+def phase_serve_moe():
+    """Both MoE archs at full width in bf16 (depth cut to what one card
+    holds, printed) on phase 3's stream, dense then paged: each run checked
+    to launch its decode kernel layers x ticks times and the other kernel
+    never; the parameter bytes counted from the shapes (experts, shared
+    experts, f32 router) equal the drawn tensors'.  Every MoE tick runs the
+    reference's one-hot dispatch, which reads every expert's weights.
+    Returns {arch: (dense launches, paged launches)}."""
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = _serve_depth(registry.get_config(arch))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = Transformer.init(cfg, 0, device="cuda")
+        torch.cuda.synchronize()
+        layer, fixed = _param_bytes(cfg)
+        drawn = sum(t.numel() * t.element_size() for t in _leaves(params))
+        check(drawn == fixed + cfg.num_layers * layer,
+              f"{arch}: parameter bytes {drawn} differ from the count by "
+              f"shapes {fixed + cfg.num_layers * layer}")
+        check(params["blocks"]["b0"]["mlp"]["router"].dtype == torch.float32,
+              f"{arch}: the router is not f32")
+        print(f"[serve moe] {cfg.name}: "
+              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+              f"parameters ({drawn / 1e9:.2f} GB; {cfg.num_layers} layers of "
+              f"{cfg.num_experts} experts, top-{cfg.top_k}, "
+              f"{cfg.shared_experts} shared) initialised on the card in "
+              f"{time.perf_counter() - t0:.2f}s; a decode tick's capacity "
+              f"{math.ceil(SLOTS * cfg.top_k * cfg.moe_capacity_factor / cfg.num_experts)}"
+              f" token(s) an expert at {SLOTS} slots")
+        label = f"{cfg.name} ({cfg.num_layers} of {arch} layers)"
+        out[arch] = (_serve_dense(cfg, params, label),
+                     _serve_paged(cfg, params, label))
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def phase_moe_parity():
+    """Both MoE SMOKE configs (``_arch_parity``, f32, TF32 off): dense and
+    paged engines, card vs CPU, token-exact."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in MOE_ARCHS:
+        _arch_parity(arch, dense_equals_paged=False)
+
+
+LLM_ARGV = ["--rounds", "2", "--edges", "2", "--steps-per-phase", "3",
+            "--batch", "8", "--seq", "64"]
+_PHASE_S = re.compile(r"\[phase0\] loss=\S+ \((\S+)s\)|\(phase1 (\S+)s\)"
+                      r"|\(phase2 (\S+)s, (\S+) steps/s\)")
+
+
+def _train(argv, seen=None):
+    """``repro_torch.launch.train.main(argv)`` with its output echoed and
+    returned; the kd pair's launches in the run (counts set to 0 just
+    before it and read just after).  With a list ``seen``, the inputs of
+    the run's first ``ops.kd_loss`` call (int64 labels, s, t, b, tau;
+    copies, as the kernels receive them) are appended to it."""
+    real = ops.kd_loss
+
+    def kd_loss(y, s, t, b=None, tau=2.0):
+        if seen is not None and not seen:
+            seen.append((y.long(),) + tuple(
+                None if a is None else a.detach().clone() for a in (s, t, b))
+                + (tau,))
+        return real(y, s, t, b, tau)
+
+    for c in KD_COUNTERS.values():
+        c.launches = 0
+    buf = io.StringIO()
+    ops.kd_loss = kd_loss
+    try:
+        with contextlib.redirect_stdout(buf):
+            params = train.main(argv)
+    finally:
+        ops.kd_loss = real
+    launches = {n: c.launches for n, c in KD_COUNTERS.items()}
+    print(buf.getvalue(), end="")
+    return params, buf.getvalue(), launches
+
+
+def phase_llm_phase2():
+    """Granite-3-2B's LLM Phase 2 at full width and depth
+    (``launch.train --full --method bkd``, bf16, AdamW, --loss-backend auto:
+    the kd pair on the card): Phase 0/1/2 seconds, Phase-2 steps/s and peak
+    memory printed; the kd pair launched once a Phase-2 step each (one
+    loss chunk: --seq 64 = the loss chunk) and the quant pair never.  The
+    pair is then held against its plain version (``_check_kd_on``, phase
+    5's f32 limit) on the first Phase-2 step's own inputs: 512 rows of
+    Granite's padded vocabulary (49,408 columns, the 253 past 49,155 at
+    -1e30), with buffer.  Then an A/B of the Phase-2 step, 'pallas' (the kd pair) against 'jnp'
+    (the plain loss), in turns on one set of weights.  Returns the pair's
+    launches in the driver run."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--full", "--arch", "granite-3-2b", "--method", "bkd",
+            "--device", "cuda"] + LLM_ARGV
+    t0 = time.perf_counter()
+    seen = []
+    params, out, launches = _train(argv, seen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = 2 * 3
+    p0, p1, p2, rate = [], [], [], []
+    for m in _PHASE_S.finditer(out):
+        for lst, v in zip((p0, p1, p2, rate), m.groups()):
+            if v is not None:
+                lst.append(float(v))
+    print(f"[llm phase2] granite-3-2b full width, 40 layers, bf16, batch 8 x "
+          f"64 tokens, {steps} Phase-2 steps in {wall:.1f}s: phase 0 "
+          f"{p0} s, phase 1 {p1} s, phase 2 {p2} s = {rate} steps/s; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B of "
+          f"{torch.cuda.get_device_properties(0).total_memory} B; launches "
+          f"{launches} for {steps} Phase-2 steps of 1 loss chunk")
+    want = {"kd_stats_fwd": steps, "kd_grad_bwd": steps,
+            "kd_quant_stats_fwd": 0, "kd_quant_grad_bwd": 0}
+    check(launches == want, f"llm phase2: launches {launches}, want {want}")
+    check(len(p2) == 2 and len(p1) == 2 and len(p0) == 1,
+          f"llm phase2: phase lines missing in {out!r}")
+    check(all(math.isfinite(float(v)) for v in re.findall(
+        r"loss=(\S+)", out)), "llm phase2: a non-finite loss")
+    del params
+    torch.cuda.empty_cache()
+    y, s, t, b, tau = seen[0]
+    cfg = registry.get_config("granite-3-2b")
+    pad = s.shape[1] - cfg.vocab_size
+    check(b is not None and s.dtype == torch.float32 and pad > 0
+          and bool((s[:, cfg.vocab_size:] <= -1e30).all()),
+          f"llm phase2: kd inputs {tuple(s.shape)} {s.dtype} pad {pad}")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    g = torch.rand(s.shape[0], generator=gen, device="cuda") + 0.5
+    _check_kd_on(f"llm phase2 main-path inputs rows={s.shape[0]} "
+                 f"V={s.shape[1]} f32 buffer=True pad={pad}", y, s, t, b, g,
+                 tau)
+    del seen, y, s, t, b
+    _llm_phase2_ab(cfg)
+    return launches["kd_stats_fwd"], launches["kd_grad_bwd"]
+
+
+def _llm_phase2_ab(cfg, pairs=3):
+    """Phase-2 step seconds (AdamW, donated) with 'pallas' and 'jnp' in
+    turns (pallas, jnp, jnp, pallas, ...) from one start state, after one
+    warm-up step each; the kd pair must launch once a 'pallas' step and
+    never in a 'jnp' step."""
+    student = Transformer.init(cfg, 0, device="cuda")
+    teacher = Transformer.init(cfg, 1, device="cuda")
+    buffer = train._copy(student)
+    opt = optimizers.adamw(3e-4)
+    state = opt.init(student)
+    data, _ = make_token_stream(cfg.vocab_size, 64, 65, seed=0)
+    batches = train.lm_batches(data, 8, 64, 4 * pairs + 2, 0, "cuda")
+    steps = {b: St.make_phase2_step(cfg, opt, loss_chunk=64, loss_backend=b)
+             for b in ("pallas", "jnp")}
+    times = {"pallas": [], "jnp": []}
+    order = ["pallas", "jnp"] + [b for i in range(pairs) for b in (
+        ("pallas", "jnp", "jnp", "pallas") if i % 2 == 0 else
+        ("jnp", "pallas", "pallas", "jnp"))][:4 * pairs]
+    torch.cuda.reset_peak_memory_stats()
+    for i, (backend, batch) in enumerate(zip(order, batches)):
+        kd_mod.kd_stats_fwd.launches = kd_mod.kd_grad_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        student, state, m = steps[backend](student, teacher, buffer, state,
+                                           batch, i)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        n = (kd_mod.kd_stats_fwd.launches, kd_mod.kd_grad_bwd.launches)
+        check(n == ((1, 1) if backend == "pallas" else (0, 0)),
+              f"phase-2 A/B: {backend} step launched the kd pair {n} times")
+        check(math.isfinite(loss), f"phase-2 A/B: {backend} loss {loss}")
+        if i >= 2:
+            times[backend].append(dt)
+    med = {b: float(np.median(v)) for b, v in times.items()}
+    print(f"[llm phase2] A/B on one set of weights, turns {order[2:]}: "
+          f"Phase-2 step s pallas {[round(t, 4) for t in times['pallas']]} "
+          f"(median {med['pallas']:.4f}), jnp "
+          f"{[round(t, 4) for t in times['jnp']]} (median {med['jnp']:.4f}); "
+          f"jnp / pallas {med['jnp'] / med['pallas']:.3f}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    del student, teacher, buffer, state
+    torch.cuda.empty_cache()
+
+
+def _train_on_start_state(weights, argv):
+    """``train.main(argv)`` with ``Transformer.init`` handing out
+    ``weights`` (one start state on both devices)."""
+    real = Transformer.init
+    Transformer.init = staticmethod(
+        lambda cfg, seed=0, *, device="cuda": params_from_numpy(weights,
+                                                                device))
+    try:
+        return _train(argv)
+    finally:
+        Transformer.init = real
+
+
+_NUMBERS = re.compile(r"(loss|kd|domain)[=:] ?(-?\d+\.\d+)")
+
+
+def phase_llm_parity():
+    """The LLM driver on granite's and phi3.5-moe's SMOKE configs (f32,
+    TF32 off; phi with its MoE aux loss) on the card and on the CPU from one
+    start state: every printed loss (Phase 0, each round's edge and Phase 2,
+    the final NLL) within 2e-4 (one unit of the last printed digit either
+    way); the card's Phase 2 through the kd pair."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in ("granite-3-2b", "phi3.5-moe-42b-a6.6b"):
+        cfg = registry.get_smoke_config(arch)
+        weights = params_to_numpy(Transformer.init(cfg, 2, device="cpu"))
+        argv = ["--arch", arch, "--method", "bkd", "--rounds", "2",
+                "--edges", "2", "--steps-per-phase", "3", "--batch", "4",
+                "--seq", "32"]
+        runs = {dev: _train_on_start_state(weights, argv + ["--device", dev])
+                for dev in ("cpu", "cuda")}
+        nums = {dev: [(k, float(v)) for k, v in _NUMBERS.findall(r[1])]
+                for dev, r in runs.items()}
+        diff = max(abs(a - b) for (_, a), (_, b) in zip(nums["cpu"],
+                                                        nums["cuda"]))
+        print(f"[llm parity] {cfg.name} f32 bkd: {len(nums['cpu'])} printed "
+              f"losses card vs CPU, max abs diff {diff:.2g} (limit 2e-4); "
+              f"card launches {runs['cuda'][2]}")
+        check([k for k, _ in nums["cpu"]] == [k for k, _ in nums["cuda"]]
+              and len(nums["cpu"]) >= 6, f"llm parity: {cfg.name} lines")
+        check(diff <= 2e-4, f"llm parity: {cfg.name} differs by {diff}")
+        check(runs["cuda"][2]["kd_stats_fwd"] == 2 * 3 > 0,
+              f"llm parity: {cfg.name} launches {runs['cuda'][2]}")
+
+
+def phase_kernels_bench():
+    """The port's ``kernels_bench`` on the card: the fused KD loss (the kd
+    pair) against the plain loss's autograd at 256 x 8,192 f32, and the
+    ``rglru`` and ``ssd`` kernels against their plain versions."""
+    out = kernels_bench.main(device="cuda")
+    print(f"[kernels bench] {out}")
+    check(out["kd_parity"] <= 1e-4
+          and out["kd_grad_err"] <= 1e-5 * out["kd_grad_scale"],
+          f"kernels bench: kd loss {out}")
+    check(out["rglru_err"] <= 1e-5, f"kernels bench: rglru {out}")
+    check(out["ssd_err"] <= TOL_SSD * (1.0 + out["ssd_scale"]),
+          f"kernels bench: ssd {out}")
 
 
 def _leaves(tree):
@@ -2271,6 +2576,11 @@ def main():
     timed(phase_decode_archs)
     timed(phase_serve_archs)
     timed(phase_archs_parity)
+    timed(phase_serve_moe)
+    timed(phase_moe_parity)
+    timed(phase_llm_phase2)
+    timed(phase_llm_parity)
+    timed(phase_kernels_bench)
     print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries
                       + [swa_entry, ssd_entry, rglru_entry]}))
     print(f"[done] {time.perf_counter() - t0:.1f}s")

@@ -6,7 +6,9 @@ attention-only Transformer, with decode attention on a hand-written Hopper
 kernel (``repro_torch.kernels.paged_decode``).  Slice 2 is the paper's
 Algorithm 1 (``repro_torch.core.fl.FederatedKD``) with the MLP and
 ResNet-32 models, whose Phase-2 loss runs on the hand-written kernels
-``repro_torch.kernels.kd_loss.kd_stats_fwd``/``kd_grad_bwd``.  Module names
+``repro_torch.kernels.kd_loss.kd_stats_fwd``/``kd_grad_bwd``; the same pair
+carries the LLM-scale Phase 2 (``repro_torch.launch.train``, the Algorithm 1
+driver over transformer cores and edges, MoE archs included).  Module names
 follow the JAX package so each counterpart is easy to find; parameters and
 states keep its nested-dict layout (``repro_torch.interop`` moves them
 across).

@@ -1,16 +1,15 @@
-"""Benchmark entry point of the port: the paper-figure benches and their
-claim-check tally (the JAX package's ``benchmarks/run.py``).
+"""Benchmark entry point of the port: the paper-figure benches, the kernel
+bench and the claim-check tally (the JAX package's ``benchmarks/run.py``).
 
-Prints ``name,us_per_call,derived`` CSV rows per figure, then
-``# claim-checks: n/m passed`` and the names of the checks that failed.
-``--fast`` runs 3 rounds where the default runs 5 (fig7 one fewer, at
-least 2; fig9 one more), as the reference does.
+Prints ``name,us_per_call,derived`` CSV rows per figure and for the kernels
+(``kernels_bench``: the fused KD loss against the plain loss's autograd,
+``rglru`` and ``ssd`` parity), then ``# claim-checks: n/m passed`` and the
+names of the checks that failed.  ``--fast`` runs 3 rounds where the
+default runs 5 (fig7 one fewer, at least 2; fig9 one more), as the
+reference does.
 
-The reference also runs ``kernels_bench`` and, when dry-run dumps exist,
-the roofline summary; both measure TPU kernels and a TPU mesh and are left
-out here.  ``chip_smoke.py``'s kernel phases stand in for them on the card:
-each hand-written kernel held against its plain version and timed beside
-its bound and a library call.
+The reference also prints a roofline summary when dry-run dumps of its TPU
+mesh exist; the port has no mesh dry-run (ROADMAP.md queue 1, slice 9).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast] [--device cpu]
 """
@@ -20,7 +19,7 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.benchmarks import (fig4_main, fig5_forget, fig7_aggregation,
-                                    fig9_straggler)
+                                    fig9_straggler, kernels_bench)
 
 
 def tally(checks):
@@ -49,6 +48,8 @@ def main(argv=None):
     _, c7 = fig7_aggregation.main(rounds=max(rounds - 1, 2), **dev)
     print("# fig9/11 — straggler robustness (paper Figs. 9 & 11)")
     _, c9 = fig9_straggler.main(rounds=rounds + 1, **dev)
+    print("# kernels — fused KD loss / RG-LRU / SSD")
+    kernels_bench.main(**dev)
 
     print(tally({**c4, **c5, **c7, **c9}))
     return {"fig4": c4, "fig5": c5, "fig7": c7, "fig9": c9}

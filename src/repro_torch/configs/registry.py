@@ -20,14 +20,14 @@ ARCHS = {
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe_42b_a6_6b",
 }
 
 # Registered in the JAX package, waiting for their sub-blocks to be ported;
 # each names the ROADMAP.md queue 1 slice it waits for.
 NOT_PORTED = {
     "hubert-xlarge": "slice 4: the encoder front-end",
-    "kimi-k2-1t-a32b": "slice 3, the rest: MoE",
-    "phi3.5-moe-42b-a6.6b": "slice 3, the rest: MoE",
 }
 
 

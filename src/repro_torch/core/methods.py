@@ -77,6 +77,19 @@ def method_names() -> tuple:
     return tuple(sorted(METHODS))
 
 
+def validate_backend(method: str, backend: str, *, llm: bool = False):
+    """Raise ``ValueError`` if ``backend`` can't drive ``method``: the CLIs
+    reject a bad ``--method``/``--loss-backend`` pair at argparse time.
+    ``llm=True`` checks the LLM driver's backend set
+    (``launch/train.py``) instead of the FL engine's."""
+    meth = resolve_method(method)
+    allowed = meth.llm_backends if llm else ("auto",) + meth.supported_backends
+    if backend not in allowed:
+        raise ValueError(
+            f"loss_backend {backend!r} is not supported by method "
+            f"{method!r} (allowed: {tuple(allowed)})")
+
+
 def empty_state() -> dict:
     """A method state with no frozen/cache/step components."""
     return {"frozen": None, "cache": None, "step": None}
@@ -139,6 +152,27 @@ class DistillMethod:
     #: The method replaces the whole gradient phase (``distill_round``).
     full_round: bool = False
 
+    # --- LLM-driver (launch/train.py) capability hints -------------------
+    #: The LLM driver can run this method.  When False,
+    #: ``llm_unsupported_reason`` says why (argparse error text).
+    llm_driver: bool = True
+    llm_unsupported_reason: str = ""
+    #: ``--loss-backend`` choices valid on the LLM driver.
+    llm_backends: tuple = ("auto", "jnp", "pallas")
+    #: Phase-2 buffer wiring on the LLM driver: "none" | "clone" (frozen at
+    #: round start) | "remelt" (re-cloned each segment: the melting
+    #: ablation at streaming scale).
+    llm_buffer: str = "none"
+    #: Weight on the CE term of the LLM chunked loss (FedDF: 0).
+    llm_ce_weight: float = 1.0
+    #: The driver keeps an EMA shadow over Phase-2 steps and swaps it in.
+    llm_ema: bool = False
+    #: The driver replaces Phase 2 with parameter averaging.
+    llm_averaging: bool = False
+    #: The driver re-inits the student from the teacher average before
+    #: Phase 2 (FedDF).
+    llm_init_from_avg: bool = False
+
     def init_round(self, ctx: MethodContext, state, teachers):
         return state, empty_state()
 
@@ -183,6 +217,7 @@ class KD(DistillMethod):
     name = "kd"
     description = ("vanilla KD, Eq. 3 (= Lin et al. 2020 at R=1): CE + "
                    "tau^2 KL against the teacher ensemble A_f")
+    llm_backends = ("auto", "jnp", "pallas", "topk_cached")
 
     def loss(self, ctx, lg, tls, y, *, x, student_state, frozen, cache,
              learned, tstack):
@@ -194,6 +229,8 @@ class BKD(DistillMethod):
     name = "bkd"
     description = ("buffered KD, Eq. 4 (the paper's contribution): Eq. 3 + "
                    "tau^2 KL against the frozen start-of-round clone F0")
+    llm_buffer = "clone"
+    llm_backends = ("auto", "jnp", "pallas", "topk_cached")
 
     def init_round(self, ctx, state, teachers):
         mstate = empty_state()
@@ -212,6 +249,8 @@ class Melting(BKD):
     name = "melting"
     description = ("ablation (Fig. 4): the buffer is re-cloned every epoch "
                    "— a melting buffer collapses BKD back toward KD")
+    llm_buffer = "remelt"
+    llm_backends = ("auto", "jnp", "pallas")
 
     def on_epoch_start(self, ctx, state, mstate):
         return dict(mstate, frozen=state)
@@ -223,6 +262,7 @@ class EMA(DistillMethod):
     description = ("EMA-of-weights baseline (Fig. 4a): plain KD while an "
                    "exponential moving average of the student is tracked "
                    "and swapped in at round end")
+    llm_ema = True
 
     def init_round(self, ctx, state, teachers):
         mstate = empty_state()
@@ -247,6 +287,9 @@ class FT(DistillMethod):
                    "translator trained by SGD inside the step to match "
                    "normalized teacher factors")
     learns_aux = True
+    llm_driver = False
+    llm_unsupported_reason = ("it needs penultimate-feature taps the "
+                              "token-LM path does not expose")
 
     def init_round(self, ctx, state, teachers):
         mstate = empty_state()
@@ -287,6 +330,8 @@ class BKDCached(DistillMethod):
                    "core set static, so its logits are precomputed once — "
                    "mathematically identical to Eq. 4, no third forward")
     supported_backends = ("jnp", "pallas", "topk_cached")
+    llm_buffer = "clone"  # LLM batches are resampled; cache lives in the loss
+    llm_backends = ("auto", "jnp", "pallas", "topk_cached")
 
     def init_round(self, ctx, state, teachers):
         topk = ctx.cfg.cache_topk if ctx.backend == "topk_cached" else None
@@ -312,6 +357,8 @@ class FedAvgMethod(DistillMethod):
                    "the 'distill' phase is a shard-size-weighted parameter "
                    "average of the round's teachers — no gradient epochs")
     full_round = True
+    llm_backends = ("auto",)
+    llm_averaging = True
 
     def distill_round(self, ctx, state, teachers):
         params = [ctx.adapter.params(t) for t in teachers]
@@ -327,6 +374,17 @@ class FedDF(DistillMethod):
                    "A_f of the round's teachers — pure KL, no CE or buffer "
                    "term (meaningful at R>1)")
     supported_backends = ("jnp",)  # the fused kernel always includes CE
+    # The LLM driver distills R=1 per round, where init-from-average makes
+    # FedDF degenerate (KL against a copy of the teacher: zero value and
+    # gradient), so it is rejected there until that driver grows R>1.
+    llm_driver = False
+    llm_unsupported_reason = ("it is only meaningful at R>1 teachers per "
+                              "round and the token-LM driver distills R=1 "
+                              "(at R=1 it degenerates to fedavg at full "
+                              "gradient cost)")
+    llm_backends = ("auto", "jnp")
+    llm_ce_weight = 0.0
+    llm_init_from_avg = True
 
     def init_round(self, ctx, state, teachers):
         avg = average_params([ctx.adapter.params(t) for t in teachers],

@@ -1,13 +1,14 @@
-"""Decoder LM over stacked per-layer parameters: the serving paths (dense
-or ring KV caches, and the block-paged pool) of
-``repro.models.transformer``.
+"""Decoder LM over stacked per-layer parameters: the full-sequence forward
+(training, ``apply``/``apply_hidden``) and the serving paths (dense or ring
+KV caches, and the block-paged pool) of ``repro.models.transformer``.
 
 Parameters are nested dicts of tensors with the JAX package's key names,
 shapes, layouts and per-leaf dtypes: sub-blocks of the ``block_pattern``
 live under ``params["blocks"]["b{i}"]`` stacked on a leading layer axis (a
 Python loop over that axis replaces ``lax.scan``), remainder layers under
 ``"tail{j}"``.  Sub-blocks are attention ("attn", "local"), Mamba-2 SSD
-("ssd") and RG-LRU ("rglru"), each with a dense MLP or none.
+("ssd") and RG-LRU ("rglru"), each with a dense MLP, a Mixture-of-Experts
+(``mlp="moe"``, with optional shared experts) or none.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import rglru as rglru_lib
 from repro_torch.nn import ssm as ssm_lib
 
@@ -38,7 +41,7 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The fields of the JAX ``LMConfig`` that the serving paths read."""
+    """The fields of the JAX ``LMConfig`` that the port's paths read."""
 
     name: str
     num_layers: int
@@ -49,7 +52,7 @@ class LMConfig:
     vocab_size: int
     head_dim: Optional[int] = None
     block_pattern: tuple = ("attn",)
-    mlp: str = "swiglu"              # "swiglu" | "gelu" | "squared_relu" | "none"
+    mlp: str = "swiglu"              # "swiglu" | "gelu" | "squared_relu" | "none" | "moe"
     norm: str = "rmsnorm"            # "rmsnorm" | "layernorm"
     causal: bool = True
     qk_norm: bool = False
@@ -58,6 +61,13 @@ class LMConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None     # window for "local" attention sub-blocks
     sliding_window: Optional[int] = None  # if set, ALL attention is windowed
+    # MoE
+    num_experts: int = 0
+    top_k: int = 0
+    expert_dim: int = 0
+    shared_experts: int = 0
+    moe_tokens_per_group: int = 128
+    moe_capacity_factor: float = 1.25
     # SSM / RG-LRU
     d_state: int = 128
     ssm_head_dim: int = 64
@@ -69,6 +79,8 @@ class LMConfig:
     mrope_sections: tuple = (16, 24, 24)
     dtype: str = "bfloat16"          # activation dtype
     param_dtype: str = "bfloat16"
+    remat: str = "block"             # "none" | "block": recompute each
+                                     # super-block in the backward pass
     ring_cache: bool = False
     q_chunk: int = 512
     vocab_pad: int = 256
@@ -118,6 +130,13 @@ class LMConfig:
             d_model=self.d_model, d_rnn=self.d_rnn or self.d_model,
             conv_width=self.conv_width)
 
+    def moe_cfg(self) -> moe_lib.MoEConfig:
+        return moe_lib.MoEConfig(
+            d_model=self.d_model, num_experts=self.num_experts,
+            top_k=self.top_k, expert_dim=self.expert_dim,
+            tokens_per_group=self.moe_tokens_per_group,
+            capacity_factor=self.moe_capacity_factor)
+
 
 # ---------------------------------------------------------------------------
 # Sub-blocks
@@ -141,11 +160,15 @@ def _dense_mlp_apply(cfg: LMConfig, p, x):
 
 
 def _mlp_apply(cfg: LMConfig, p, x):
-    """Returns (y, aux_loss); MoE is not ported yet."""
+    """Returns (y, aux_loss): the MoE's Switch loss, 0.0 for a dense MLP."""
     if cfg.mlp == "none":
         return torch.zeros_like(x), 0.0
     if cfg.mlp == "moe":
-        raise NotImplementedError(f"MoE is {_NOT_PORTED}")
+        y, aux = moe_lib.forward({k: v for k, v in p.items() if k != "shared"},
+                                 cfg.moe_cfg(), x)
+        if "shared" in p:
+            y = y + _dense_mlp_apply(cfg, p["shared"], x)
+        return y, aux
     return _dense_mlp_apply(cfg, p, x), 0.0
 
 
@@ -156,6 +179,30 @@ def _recurrent(cfg: LMConfig, kind: str):
     if kind == "rglru":
         return rglru_lib, cfg.rglru_cfg()
     raise ValueError(kind)
+
+
+def _mixer_apply(cfg: LMConfig, kind: str, p, x, positions):
+    if kind in _ATTENTION:
+        return attn_lib.forward(p, cfg.attn_cfg(kind == "local"), x, positions)
+    if torch.is_grad_enabled() and x.device.type == "cuda":
+        raise NotImplementedError(
+            f"training through {kind!r} blocks on the card needs a backward "
+            f"kernel for ops.{'ssd' if kind == 'ssd' else 'rglru'}, which is "
+            f"{_NOT_PORTED}")
+    lib, sub = _recurrent(cfg, kind)
+    return lib.forward(p, sub, x)
+
+
+def _subblock_fwd(cfg: LMConfig, kind: str, p, x, positions):
+    """One sub-block of the full-sequence forward: (x, aux_loss)."""
+    y = _mixer_apply(cfg, kind, p["mixer"], _norm_apply(cfg, p["ln1"], x),
+                     positions)
+    x = x + y
+    aux = 0.0
+    if cfg.mlp != "none":
+        m, aux = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+        x = x + m
+    return x, aux
 
 
 def _subblock_cache_init(cfg: LMConfig, kind: str, batch, max_len, device,
@@ -229,6 +276,18 @@ def _index(tree, i):
     return tree[i]
 
 
+def _unstack(tree):
+    """Per-layer views of a stacked subtree, one ``unbind`` a leaf.  Its
+    backward stacks the layers' gradients once; indexing layer by layer
+    (``_index``) would instead add a zero-padded gradient of the whole stack
+    for every layer, L² traffic in a training step."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 def _sub_blocks(cfg: LMConfig, params, caches):
     """(kind, layer params, layer cache or pool) in layer order: stacked
     super-blocks first, then the tail."""
@@ -269,10 +328,31 @@ def _attn_init(cfg: LMConfig, kind: str, stack, draw):
     return mixer
 
 
-def _subblock_init(cfg: LMConfig, kind: str, stack, draw):
+def _dense_mlp_init(cfg: LMConfig, ff, stack, draw):
+    """``up``, ``gate`` (gated MLPs: swiglu, and MoE's shared experts) and
+    ``down``, drawn in that order."""
     sh = (lambda *s: s) if stack is None else (lambda *s: (stack, *s))
-    d, ff = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
     std = 1.0 / math.sqrt(d)
+    mlp = {"up": {"w": draw(sh(d, ff), std)}}
+    if cfg.mlp in ("swiglu", "moe"):
+        mlp["gate"] = {"w": draw(sh(d, ff), std)}
+    mlp["down"] = {"w": draw(sh(ff, d), 1.0 / math.sqrt(ff))}
+    return mlp
+
+
+def _mlp_init(cfg: LMConfig, stack, draw):
+    if cfg.mlp != "moe":
+        return _dense_mlp_init(cfg, cfg.d_ff, stack, draw)
+    mlp = moe_lib.init(cfg.moe_cfg(), draw.gen, draw.device, stack=stack,
+                       dtype=cfg.pdt)
+    if cfg.shared_experts:
+        mlp["shared"] = _dense_mlp_init(
+            cfg, cfg.expert_dim * cfg.shared_experts, stack, draw)
+    return mlp
+
+
+def _subblock_init(cfg: LMConfig, kind: str, stack, draw):
     if kind in _ATTENTION:
         mixer = _attn_init(cfg, kind, stack, draw)
     else:
@@ -282,13 +362,8 @@ def _subblock_init(cfg: LMConfig, kind: str, stack, draw):
     p = {"ln1": _norm_init(cfg, stack, draw.device), "mixer": mixer}
     if cfg.mlp == "none":
         return p
-    if cfg.mlp == "moe":
-        raise NotImplementedError(f"MoE is {_NOT_PORTED}")
-    mlp = {"up": {"w": draw(sh(d, ff), std)}}
-    if cfg.mlp == "swiglu":
-        mlp["gate"] = {"w": draw(sh(d, ff), std)}
-    mlp["down"] = {"w": draw(sh(ff, d), 1.0 / math.sqrt(ff))}
-    p["ln2"], p["mlp"] = _norm_init(cfg, stack, draw.device), mlp
+    p["ln2"], p["mlp"] = (_norm_init(cfg, stack, draw.device),
+                          _mlp_init(cfg, stack, draw))
     return p
 
 
@@ -356,6 +431,54 @@ class Transformer:
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:] = NEG_INF
         return logits
+
+    # -- full-sequence forward (train / prefill trunk) ----------------------
+
+    @staticmethod
+    def apply_hidden(cfg: LMConfig, params, batch):
+        """-> (final hidden states (B, S, D) before ``ln_f``, aux_loss f32
+        scalar: the MoE layers' Switch losses summed).  With ``remat ==
+        "block"`` and gradients on, each super-block runs under
+        ``torch.utils.checkpoint`` (its activations are recomputed in the
+        backward pass, as ``jax.checkpoint`` does: memory, not numbers)."""
+        x, positions = Transformer._embed_inputs(cfg, params, batch)
+        pat = cfg.block_pattern
+        stacked = ({b: _unstack(p) for b, p in params["blocks"].items()}
+                   if cfg.n_super > 0 else {})
+
+        def super_fwd(x, layer):
+            aux = 0.0
+            for i, kind in enumerate(pat):
+                x, a = _subblock_fwd(cfg, kind, stacked[f"b{i}"][layer], x,
+                                     positions)
+                aux = aux + a
+            return x, torch.as_tensor(aux, dtype=torch.float32,
+                                      device=x.device)
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = cfg.remat == "block" and torch.is_grad_enabled()
+        for layer in range(cfg.n_super):
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    super_fwd, x, layer, use_reentrant=False)
+            else:
+                x, a = super_fwd(x, layer)
+            aux = aux + a
+        for j in range(cfg.n_tail):
+            x, a = _subblock_fwd(cfg, pat[j % len(pat)], params[f"tail{j}"],
+                                 x, positions)
+            aux = aux + a
+        return x, aux
+
+    @staticmethod
+    def logits_from_hidden(cfg: LMConfig, params, hidden):
+        return Transformer._unembed(cfg, params, hidden)
+
+    @staticmethod
+    def apply(cfg: LMConfig, params, batch):
+        """-> (logits (B, S, V_pad) f32, aux_loss f32 scalar)."""
+        x, aux = Transformer.apply_hidden(cfg, params, batch)
+        return Transformer._unembed(cfg, params, x), aux
 
     # -- dense decode path (the dense ServeEngine) ---------------------------
 

@@ -1,6 +1,6 @@
-"""GQA attention with RoPE or M-RoPE, qk-norm, QKV bias and sliding windows
-over a dense (full or ring) KV cache or a block-paged KV pool: the serving
-half of ``repro.nn.attention``.
+"""GQA attention with RoPE or M-RoPE, qk-norm, QKV bias and sliding windows:
+the full-sequence forward (training) and the serving paths over a dense
+(full or ring) KV cache or a block-paged KV pool, of ``repro.nn.attention``.
 
 Layouts follow the JAX package: ``wq`` (d, H, D), ``wk``/``wv`` (d, N, D),
 ``wo`` (H, D, d); dense caches (B, W, N, D); pools (P, page_size, N, D).
@@ -117,6 +117,14 @@ def attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
         outs.append(_attend_chunk(qg[:, start:start + chunk], k, v, q_pos,
                                   k_pos, cfg))
     return torch.cat(outs, dim=1).reshape(b, s, h, d)
+
+
+def forward(params, cfg: AttnConfig, x, positions):
+    """Training / encoding forward.  x: (B, S, D); positions (B, S) or
+    (B, 3, S)."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = attend_full(q, k, v, cfg)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
 
 
 def cache_len(cfg: AttnConfig, max_len):

@@ -6,6 +6,7 @@ from repro_torch.optim.optimizers import (
     decay_lr,
     sgd_momentum,
     step_decay,
+    update_in_place,
 )
 
 __all__ = [
@@ -13,6 +14,7 @@ __all__ = [
     "sgd_momentum",
     "adamw",
     "step_decay",
+    "update_in_place",
     "decay_lr",
     "cosine_schedule",
     "constant_schedule",

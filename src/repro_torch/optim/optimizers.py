@@ -135,3 +135,30 @@ def adamw(schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
                                            "v": _pick(flat, 2, is_triple)}
 
     return Optimizer(init, update)
+
+
+def update_in_place(opt: Optimizer, grads, state, params, step):
+    """``opt.update`` taken one leaf at a time, each new leaf written over
+    the old one's place in the dicts ``params`` and ``state`` (and each
+    gradient dropped from ``grads`` once used): the caller gives the three
+    trees up, as ``jax.jit(..., donate_argnums=...)`` does.  An old leaf is
+    freed as soon as its replacement exists, so a step holds one leaf's
+    temporaries beside the trees instead of a second copy of the parameters
+    and the optimizer slots.  The values are those of ``opt.update``: the
+    same function computes each leaf.  Returns ``(params, state)``."""
+
+    def walk(p, g, s):
+        for key in list(p):
+            if isinstance(p[key], dict):
+                walk(p[key], g[key], {k: v[key] for k, v in s.items()})
+                continue
+            leaf_g, g[key] = g[key], None
+            new_p, new_s = opt.update(leaf_g, {k: v[key] for k, v in s.items()},
+                                      p[key], step)
+            del leaf_g
+            p[key] = new_p
+            for k, v in s.items():
+                v[key] = new_s[k]
+
+    walk(params, grads, state)
+    return params, state

@@ -13,7 +13,9 @@
 from repro_torch.serve.engine import (ServeEngine, bucket_length,
                                       make_admit_step, make_decode_tick,
                                       make_init_state, make_paged_admit_step,
-                                      make_paged_decode_tick, make_sampler)
+                                      make_paged_decode_tick,
+                                      make_prefill_step, make_sampler,
+                                      make_serve_step, simulate)
 from repro_torch.serve.paged import (Admission, PageAllocator, TRASH_PAGE,
                                      pages_for)
 from repro_torch.serve.streams import (STREAMS, Request, build_stream,
@@ -22,7 +24,8 @@ from repro_torch.serve.streams import (STREAMS, Request, build_stream,
 __all__ = [
     "ServeEngine", "Request", "STREAMS", "build_stream", "bucket_length",
     "make_admit_step", "make_decode_tick", "make_init_state",
-    "make_paged_admit_step", "make_paged_decode_tick", "make_sampler",
+    "make_paged_admit_step", "make_paged_decode_tick", "make_prefill_step",
+    "make_sampler", "make_serve_step", "simulate",
     "with_shared_prefix", "Admission", "PageAllocator", "TRASH_PAGE",
     "pages_for",
 ]

@@ -33,6 +33,34 @@ from repro_torch.serve.paged import PageAllocator, TRASH_PAGE, pages_for
 _NOT_PORTED = "not ported yet (ROADMAP.md queue 1, slice 6: checkpoints)"
 
 
+def make_serve_step(cfg: LMConfig):
+    """One greedy decode step: (params, cache, token, pos) -> (next_token
+    (B, 1) int32, cache).  ``pos`` is a scalar (the whole batch at one
+    position) or (B,) (the engine's per-slot path); the cache is updated in
+    place and returned."""
+
+    @torch.inference_mode()
+    def step(params, cache, token, pos):
+        logits, new_cache = Transformer.decode_step(cfg, params, cache, token,
+                                                    pos)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        return nxt, new_cache
+
+    return step
+
+
+def make_prefill_step(cfg: LMConfig, max_len):
+    """Prompt -> (first greedy token (B, 1) int32, fresh dense caches)."""
+
+    @torch.inference_mode()
+    def step(params, batch):
+        logits, cache = Transformer.prefill(cfg, params, batch, max_len)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        return nxt, cache
+
+    return step
+
+
 def make_sampler(sample: str = "greedy", temperature: float = 1.0,
                  top_k: int = 0):
     """Token sampler over (B, V) logits: ``(logits, generator) -> (B,)
@@ -594,3 +622,17 @@ def _copy_to(tree, device):
     if isinstance(tree, dict):
         return {k: _copy_to(v, device) for k, v in tree.items()}
     return tree.detach().to(device, copy=True)
+
+
+def simulate(cfg, params, requests, slots, max_len, mesh=None, log=print,
+             **engine_kw):
+    """Functional wrapper with the JAX package's ``simulate`` signature:
+    build an engine, serve the request list, return the finished requests.
+    The port serves on one card, so ``mesh`` must be None (meshes are
+    slice 9)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "simulate(mesh=...) is not ported yet (ROADMAP.md queue 1, "
+            "slice 9: sharding); the port serves on one device")
+    return ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                       **engine_kw).run(requests, log=log)

@@ -164,6 +164,9 @@ def test_tally_equals_the_reference(monkeypatch, capsys, fast, fails):
               for f in ("fig4", "fig5", "fig7", "fig9")}
     from benchmarks import kernels_bench
     monkeypatch.setattr(kernels_bench, "main", lambda *a, **k: None)
+    benched = []
+    monkeypatch.setattr(run.kernels_bench, "main",
+                        lambda *a, **k: benched.append(k))
     monkeypatch.setattr(jrun.os.path, "isdir", lambda p: False)
     jcalls = _stub_mains(monkeypatch, (("fig4", jfig4), ("fig5", jfig5),
                                        ("fig7", jfig7), ("fig9", jfig9)),
@@ -183,6 +186,7 @@ def test_tally_equals_the_reference(monkeypatch, capsys, fast, fails):
     assert calls == jcalls
     assert got == checks
     assert f"{8 - len(fails)}/8 passed" in lines[0]
+    assert benched == [{"device": "cpu"}]   # the kernel bench, as jrun runs it
 
 
 def test_phase2_bench_runs_on_cpu(capsys):

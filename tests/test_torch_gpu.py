@@ -8,8 +8,9 @@ JAX (the GPU machine has none): the hand-written ``paged_decode``,
 port's plain PyTorch versions (f32 within 1e-5, bf16 within 1e-2; the SSD
 scan within 3e-4), the paged and dense engines on the card against the same
 engines on the CPU (greedy tokens equal, f32 with TF32 off; the recurrent
-archs too), and federated rounds on the card (with and without int8 uplink
-transport) against the same rounds on the CPU.
+archs too, and the MoE archs), federated rounds on the card (with and
+without int8 uplink transport) against the same rounds on the CPU, and the
+MoE forward and an LLM Phase-2 step on the card against the CPU.
 """
 
 import os
@@ -1219,3 +1220,93 @@ def test_recurrent_engine_on_card_matches_cpu_and_runs_the_kernels(cuda, arch):
                         kinds.count("rglru") * len(prefills),
                         kinds.count("local") * engine.decode_ticks]
     assert len(prefills) > 0 and engine.decode_ticks > 0
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b"])
+def test_moe_forward_and_engines_on_card_match_cpu(cuda, arch):
+    """``moe.forward`` on a 4-row decode tick (capacity binds) and a
+    prefill-sized batch, card against CPU within 1e-5 (f32, TF32 off); the
+    dense and paged engines serve the arch's SMOKE config with the card's
+    greedy tokens equal to the CPU's, through their decode kernels."""
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.nn import moe
+    cfg = registry.get_smoke_config(arch)
+    weights = params_to_numpy(Transformer.init(cfg, 3, device="cpu"))
+    mlp = {k: v[0] for k, v in weights["blocks"]["b0"]["mlp"].items()
+           if k != "shared"}
+    rng = np.random.default_rng(4)
+    for shape in ((4, 1, cfg.d_model), (2, 40, cfg.d_model)):
+        x = rng.standard_normal(shape).astype(np.float32)
+        out = {dev: moe.forward(params_from_numpy(mlp, dev), cfg.moe_cfg(),
+                                torch.from_numpy(x).to(dev))
+               for dev in ("cpu", "cuda")}
+        assert (out["cuda"][0].cpu() - out["cpu"][0]).abs().max() <= 1e-5
+        assert abs(float(out["cuda"][1]) - float(out["cpu"][1])) <= 1e-6
+    for paged in (False, True):
+        reqs = lambda: build_stream("bursty", 6, vocab=cfg.vocab_size,  # noqa: E731
+                                    seed=5, prompt_max=24, out_max=8,
+                                    shared_prefix=8)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            engine = ServeEngine(cfg, params_from_numpy(weights, dev),
+                                 slots=4, max_len=64, paged=paged,
+                                 page_size=8, device=dev)
+            outs[dev] = {r.rid: r.out for r in engine.run(reqs())}
+        assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "phi3.5-moe-42b-a6.6b"])
+def test_phase2_step_on_card_matches_cpu_through_the_kd_pair(cuda, arch):
+    """One buffered-KD Phase-2 step (two loss chunks) of the SMOKE config on
+    the card, where 'pallas' is the kd kernel pair, against the same step
+    on the CPU (the pair's plain versions), f32 with TF32 off: loss within
+    1e-5 and each gradient leaf within 1e-4 of its largest CPU gradient
+    (read through an optimizer that returns the gradient); after one AdamW
+    step (lr 3e-4), parameters within 1e-6 where the CPU gradient is at
+    least 1e-6 in magnitude and within 2·lr below (AdamW's first step is
+    lr·g/(|g| + 1e-8)).  The card launches ``kd_stats_fwd`` 2 x 2 times
+    (each chunk's forward and its recompute) and ``kd_grad_bwd`` 2 times."""
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.launch import steps as St
+    from repro_torch.optim import Optimizer, adamw
+    grad_opt = Optimizer(init=lambda p: {},
+                         update=lambda g, s, p, step, lr=None: (g, s))
+    cfg = registry.get_smoke_config(arch)
+    weights = [params_to_numpy(Transformer.init(cfg, s, device="cpu"))
+               for s in (1, 2, 3)]
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size - 1,
+                                             size=(2, 33))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+        res = []
+        for opt in (grad_opt, adamw(3e-4)):
+            student, teacher, buf = (params_from_numpy(w, dev)
+                                     for w in weights)
+            step = St.make_phase2_step(cfg, opt, loss_chunk=16,
+                                       loss_backend="pallas")
+            kd.kd_stats_fwd.launches = kd.kd_grad_bwd.launches = 0
+            p, _, m = step(student, teacher, buf, opt.init(student), batch, 0)
+            res.append((list(_leaves(params_to_numpy(p))), float(m["loss"])))
+            if dev == "cuda":
+                assert (kd.kd_stats_fwd.launches,
+                        kd.kd_grad_bwd.launches) == (4, 2)
+        out[dev] = res
+    (g_cpu, loss_cpu), (p_cpu, _) = out["cpu"]
+    (g_card, loss_card), (p_card, _) = out["cuda"]
+    assert abs(loss_card - loss_cpu) <= 1e-5
+    for got, want in zip(g_card, g_cpu):
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    for got, want, g in zip(p_card, p_cpu, g_cpu):
+        err, tiny = np.abs(got - want), np.abs(g) < 1e-6
+        assert err[~tiny].max(initial=0) <= 1e-6
+        assert err[tiny].max(initial=0) <= 2 * 3e-4
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
