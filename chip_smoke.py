@@ -158,13 +158,49 @@ together; each prints its kernels' registers and spills), then:
               loss ('jnp') in turns on one set of weights;
 28. llm parity    the LLM driver on granite's and phi3.5-moe's SMOKE configs
               (f32, TF32 off) on the card and on the CPU from one start
-              state: every printed loss and the final NLL within 2e-4;
-29. kernels bench the port's ``kernels_bench`` on the card (the kd pair
+              state: every printed loss and the final NLL within 2e-4; then
+              granite with ``--sim async:heavy_tail`` and ``--sim
+              fleet:uniform`` (3 rounds over 3 edges): the same edges,
+              staleness and event times, the losses within 1e-4;
+29. fl async  phase 6's ResNet-32 (full width, f32, cuDNN TF32) over 1 core
+              + 6 Dirichlet(1) edges of ~2,500: bkd under
+              ``async_heavy_tail`` (deadline 2.0) and ``hier_uniform`` (2
+              regions of 3 edges), kd under ``async_heavy_tail``, 3 core
+              rounds at R = 2 each; prints each timeline (dispatches,
+              staleness, makespan, region rounds), each round's test
+              accuracy and Phase 0/1/2 s; the kd pair must launch once a
+              Phase-2 step of every distill round of the plan stream
+              (region rounds included), some teacher must be stale under
+              ``async_heavy_tail``, ``history`` one entry a core round;
+30. fl async parity  the quickstart's MLP (bkd, R = 2, f32, TF32 off)
+              under ``async_uniform`` and ``hier_uniform``, card vs CPU
+              from one initial state: first Phase-2 loss within 1e-5
+              relative, test accuracy within 0.02, rounds equal;
+31. async bench   the port's ``async_bench --smoke`` on the card (5
+              scenarios x bkd, kd, fedavg, the 100k-edge timeline) with
+              its exit rule;
+32. transport frontiers   the transport bench's ``async_uniform`` and
+              ``hier_uniform`` frontiers (``--smoke`` sizes) on the card
+              and ``bench_sim_accounting``'s gates; the quant pair must
+              launch;
+33. hubert    hubert-xlarge at full width and depth (48 layers, d_model
+              1280, bf16, AdamW): 3 masked pretrain steps on 8 x 500
+              frames (every 4th masked), step s and peak memory; SMOKE's
+              logits and masked loss card vs CPU;
+34. recurrent train   ``launch.train --full --arch mamba2-370m --method
+              bkd --rounds 1 --steps-per-phase 3`` on the card: no ``ssd``
+              launch in training (printed beside phase 19's), the kd pair
+              once a Phase-2 step; a SMOKE pretrain step of recurrentgemma-9b
+              and mamba2-370m card vs CPU, loss within 1e-5 and gradients
+              within 1e-4 (recurrentgemma's full width does not fit one card
+              with AdamW: printed);
+35. kernels bench the port's ``kernels_bench`` on the card (the kd pair
               against the plain loss's autograd at 256 x 8,192, the
               gradient within 1e-5 of its largest entry; ``rglru`` and
               ``ssd`` against their plain versions);
-30. kernels   prints one JSON line per the port's kernel table (eight
-              kernels).
+36. kernels   prints one JSON line per the port's kernel table (eight
+              kernels; the kd pair's launches include phase 29's, the quant
+              pair's phase 32's).
 
 Each phase's seconds are printed (``[time]``).
 
@@ -194,16 +230,17 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.benchmarks import (fig4_main, fig5_forget,  # noqa: E402
-                                    fig7_aggregation, fig9_straggler,
-                                    kernels_bench, phase2_bench,
-                                    transport_bench)
+from repro_torch.benchmarks import (async_bench, fig4_main,  # noqa: E402
+                                    fig5_forget, fig7_aggregation,
+                                    fig9_straggler, kernels_bench,
+                                    phase2_bench, transport_bench)
 from repro_torch.benchmarks import run as fig_run  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.resnet32_cifar import RESNET32  # noqa: E402
 from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core.distill_engine import DistillEngine  # noqa: E402
 from repro_torch.core.fl import FederatedKD, FLConfig, resnet_adapter  # noqa: E402
+from repro_torch.core.scheduler import HIER_SCENARIOS, build_scenario  # noqa: E402
 from repro_torch.data import (Dataset, dirichlet_partition,  # noqa: E402
                               make_cifar_like, make_token_stream)
 from repro_torch.examples import quickstart  # noqa: E402
@@ -902,12 +939,14 @@ def phase_kd_kernels():
 # -- Algorithm 1 on the card ------------------------------------------------
 
 
-def _cifar_silos():
+def _cifar_silos(num_edges=3):
     """CIFAR-shaped data (32x32x3, 100 classes): 1,000 test images and
-    1 core + 3 edge Dirichlet(1) silos of ~2,500 (the paper's 50,000 / 20)."""
-    x, y = make_cifar_like(num_classes=100, n=11000, seed=0)
+    1 core + ``num_edges`` edge Dirichlet(1) silos of ~2,500 (the paper's
+    50,000 / 20)."""
+    x, y = make_cifar_like(num_classes=100, n=1000 + 2500 * (num_edges + 1),
+                           seed=0)
     xs, ys = x[1000:], y[1000:]
-    parts = dirichlet_partition(ys, 4, alpha=1.0, seed=1)
+    parts = dirichlet_partition(ys, num_edges + 1, alpha=1.0, seed=1)
     return (Dataset(xs[parts[0]], ys[parts[0]]),
             [Dataset(xs[p], ys[p]) for p in parts[1:]],
             Dataset(x[:1000], y[:1000]))
@@ -1949,7 +1988,7 @@ def _serve_recurrent(arch):
     """Phase 3's stream on the dense engine with ``arch`` at full width and
     depth in bf16, after a two-request warm-up.  Returns every serving
     kernel's launches in the measured run (each count set to 0 just before
-    it)."""
+    it) and the parameter count."""
     cfg = registry.get_config(arch)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2005,14 +2044,16 @@ def _serve_recurrent(arch):
           f"{cfg.name}: launches {launches}, want {want}")
     del engine, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, n_params
 
 
 def phase_serve_recurrent():
     """Mamba-2 370m and then RecurrentGemma-9B at full width in bf16 on the
-    dense engine: returns (ssd launches, rglru launches)."""
-    return (_serve_recurrent("mamba2-370m")["ssd"],
-            _serve_recurrent("recurrentgemma-9b")["rglru"])
+    dense engine: returns (ssd launches, rglru launches, RecurrentGemma-9B's
+    parameter count)."""
+    mamba, _ = _serve_recurrent("mamba2-370m")
+    rg, rg_params = _serve_recurrent("recurrentgemma-9b")
+    return mamba["ssd"], rg["rglru"], rg_params
 
 
 # (rid, arrival, prompt length, max_new): three arrivals at tick 0 with two
@@ -2479,34 +2520,53 @@ def _train_on_start_state(weights, argv):
 _NUMBERS = re.compile(r"(loss|kd|domain)[=:] ?(-?\d+\.\d+)")
 
 
+_ROUND_LINE = re.compile(r"\[round \d+\] edge \d+ trained( stale=\S+)?"
+                         r"( t=\S+)?,")
+
+
 def phase_llm_parity():
     """The LLM driver on granite's and phi3.5-moe's SMOKE configs (f32,
     TF32 off; phi with its MoE aux loss) on the card and on the CPU from one
     start state: every printed loss (Phase 0, each round's edge and Phase 2,
     the final NLL) within 2e-4 (one unit of the last printed digit either
-    way); the card's Phase 2 through the kd pair."""
+    way); the card's Phase 2 through the kd pair.  Then granite with the
+    slice-7 plan sources, ``--sim async:heavy_tail`` and ``--sim
+    fleet:uniform`` (3 rounds over 3 edges, distill-on-arrival): the same
+    edges, staleness and event times, the printed losses within 1e-4."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for arch in ("granite-3-2b", "phi3.5-moe-42b-a6.6b"):
+    base = ["--method", "bkd", "--steps-per-phase", "3", "--batch", "4",
+            "--seq", "32"]
+    sim = ["--rounds", "3", "--edges", "3", "--sim"]
+    for arch, extra, limit in (
+            ("granite-3-2b", ["--rounds", "2", "--edges", "2"], 2e-4),
+            ("phi3.5-moe-42b-a6.6b", ["--rounds", "2", "--edges", "2"], 2e-4),
+            ("granite-3-2b", sim + ["async:heavy_tail"], 1e-4),
+            ("granite-3-2b", sim + ["fleet:uniform"], 1e-4)):
         cfg = registry.get_smoke_config(arch)
         weights = params_to_numpy(Transformer.init(cfg, 2, device="cpu"))
-        argv = ["--arch", arch, "--method", "bkd", "--rounds", "2",
-                "--edges", "2", "--steps-per-phase", "3", "--batch", "4",
-                "--seq", "32"]
+        argv = ["--arch", arch] + base + extra
         runs = {dev: _train_on_start_state(weights, argv + ["--device", dev])
                 for dev in ("cpu", "cuda")}
         nums = {dev: [(k, float(v)) for k, v in _NUMBERS.findall(r[1])]
                 for dev, r in runs.items()}
         diff = max(abs(a - b) for (_, a), (_, b) in zip(nums["cpu"],
                                                         nums["cuda"]))
-        print(f"[llm parity] {cfg.name} f32 bkd: {len(nums['cpu'])} printed "
-              f"losses card vs CPU, max abs diff {diff:.2g} (limit 2e-4); "
-              f"card launches {runs['cuda'][2]}")
+        rounds = {dev: _ROUND_LINE.findall(r[1]) for dev, r in runs.items()}
+        label = f"{cfg.name} f32 bkd {' '.join(extra)}"
+        print(f"[llm parity] {label}: {len(nums['cpu'])} printed losses card "
+              f"vs CPU, max abs diff {diff:.2g} (limit {limit:g}); rounds "
+              f"(staleness, event time) {rounds['cuda']}; card launches "
+              f"{runs['cuda'][2]}")
         check([k for k, _ in nums["cpu"]] == [k for k, _ in nums["cuda"]]
-              and len(nums["cpu"]) >= 6, f"llm parity: {cfg.name} lines")
-        check(diff <= 2e-4, f"llm parity: {cfg.name} differs by {diff}")
-        check(runs["cuda"][2]["kd_stats_fwd"] == 2 * 3 > 0,
-              f"llm parity: {cfg.name} launches {runs['cuda'][2]}")
+              and len(nums["cpu"]) >= 6, f"llm parity: {label} lines")
+        check(rounds["cpu"] == rounds["cuda"]
+              and len(rounds["cuda"]) == int(extra[1]),
+              f"llm parity: {label} rounds {rounds}")
+        check(diff <= limit + 1e-9, f"llm parity: {label} differs by {diff}")
+        steps = 3 * int(extra[1])
+        check(runs["cuda"][2]["kd_stats_fwd"] == steps > 0,
+              f"llm parity: {label} launches {runs['cuda'][2]}")
 
 
 def phase_kernels_bench():
@@ -2521,6 +2581,370 @@ def phase_kernels_bench():
     check(out["rglru_err"] <= 1e-5, f"kernels bench: rglru {out}")
     check(out["ssd_err"] <= TOL_SSD * (1.0 + out["ssd_scale"]),
           f"kernels bench: ssd {out}")
+
+
+# -- slice 7: asynchronous and hierarchical FL -------------------------------
+
+#: (method, scenario) runs of phase 31, each ASYNC_ROUNDS core rounds at
+#: R = 2 over 6 edges (``_hier_regions(6)``: 2 regions of 3 edges).
+ASYNC_RUNS = (("bkd", "async_heavy_tail"), ("bkd", "hier_uniform"),
+              ("kd", "async_heavy_tail"))
+ASYNC_ROUNDS = 3
+
+
+def _fl_async_run(silos, method, scenario, rounds=ASYNC_ROUNDS, r=2):
+    """One ResNet-32 federation over a simulator's plan stream; returns the
+    kd kernels' launches in it (counts set to 0 just before the run and
+    read just after), which must equal the Phase-2 steps the stream implies:
+    every plan (flat rounds; region and core rounds) is one distill
+    round."""
+    core, edges, test = silos
+    cfg = FLConfig(num_edges=len(edges), rounds=rounds, aggregation_r=r,
+                   method=method, core_epochs=2, edge_epochs=2, kd_epochs=2,
+                   batch_size=128, lr=0.1, kd_lr=0.02, tau=2.0,
+                   loss_backend="auto")
+    sim = build_scenario(scenario, len(edges), aggregation_r=r)
+    plans = sim.plans(rounds)
+    stats = dict(sim.stats)
+    fl = FederatedKD(resnet_adapter(RESNET32), cfg, core, edges, test,
+                     scheduler=sim, device="cuda")
+    times = {"phase0": 0.0, "phase1": 0.0}
+    _timed(fl, "pretrain_core", times, "phase0")
+    _timed(fl, "train_round_edges", times, "phase1")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in KD_COUNTERS.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    _, hist = fl.run(0, log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in KD_COUNTERS.items()}
+    per_round = cfg.kd_epochs * max(len(core) // min(cfg.batch_size,
+                                                     len(core)), 1)
+    steps = len(plans) * per_round
+    phase2 = wall - times["phase0"] - times["phase1"]
+    name = f"{method} {scenario} R={r}"
+    teachers = sum(len(p.tasks) for p in plans
+                   if getattr(p, "level", "") != "core")
+    print(f"[fl async] {name}: timeline dispatches {stats['dispatches']}, "
+          f"mean staleness {stats['mean_staleness']:.4f}, max staleness "
+          f"{stats['max_staleness']}, makespan {stats['makespan']:.4f}, "
+          f"region rounds {stats.get('region_rounds', 0)}; {len(plans)} "
+          f"distill rounds, {teachers} edge trainings")
+    for h in hist:
+        print(f"[fl async] {name} round {h.round}: edges {h.edges} "
+              f"staleness {h.staleness} test_acc {h.test_acc:.4f} "
+              f"acc_cur_edge {h.acc_cur_edge:.4f}")
+    print(f"[fl async] {name}: {rounds} core rounds in {wall:.2f}s: phase 0 "
+          f"{times['phase0']:.2f}s, phase 1 {times['phase1']:.2f}s, phase 2 "
+          f"(with the rounds' metrics passes) {phase2:.2f}s = "
+          f"{steps / phase2:.2f} Phase-2 steps/s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; launches {launches} for "
+          f"{steps} Phase-2 steps")
+    want = {"kd_stats_fwd": steps, "kd_grad_bwd": steps,
+            "kd_quant_stats_fwd": 0, "kd_quant_grad_bwd": 0}
+    check(launches == want and steps > 0,
+          f"{name}: kernel launches {launches}, want {want}")
+    check(len(hist) == rounds, f"{name}: {len(hist)} of {rounds} core rounds")
+    if scenario.startswith("async_heavy_tail"):
+        check(stats["max_staleness"] > 0, f"{name}: no stale teacher {stats}")
+    if scenario in HIER_SCENARIOS:
+        check(stats["region_rounds"] == len(plans) - rounds > 0,
+              f"{name}: region rounds {stats}")
+    for h in hist:
+        vals = [v for v in h.as_dict().values() if isinstance(v, float)]
+        check(all(math.isfinite(v) for v in vals), f"{name}: non-finite {h}")
+    return launches
+
+
+def phase_fl_async():
+    """Phase 6's ResNet-32 (full width, f32, cuDNN TF32 on) over 1 core +
+    6 edges under an emergent-staleness timeline and a two-level fleet.
+    Returns the kd pair's launches over the phase."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    silos = _cifar_silos(num_edges=6)
+    core, edges, test = silos
+    print(f"[fl async] ResNet-{RESNET32.depth} width {RESNET32.width}; core "
+          f"{len(core)}, edges {[len(e) for e in edges]}, test {len(test)}")
+    total = [0, 0]
+    for method, scenario in ASYNC_RUNS:
+        launches = _fl_async_run(silos, method, scenario)
+        total = [a + launches[n] for a, n in zip(
+            total, ("kd_stats_fwd", "kd_grad_bwd"))]
+    return total
+
+
+def phase_fl_async_parity():
+    """The quickstart's MLP federation (bkd, R = 2, 2 core rounds, f32,
+    TF32 off) under ``async_uniform`` and ``hier_uniform`` on the card and
+    on the CPU from one initial state: the first Phase-2 loss of the
+    stream's first round within 1e-5 relative, the per-round test accuracy
+    within 0.02 (phase 7's limits), the rounds' edges and staleness
+    equal."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    adapter, core, edges, test = quickstart.setup()
+    init = params_to_numpy(adapter.init(torch.Generator().manual_seed(0),
+                                        "cpu"))
+    adapter = dataclasses.replace(
+        adapter, init=lambda gen, device: params_from_numpy(init, device))
+    cfg = dataclasses.replace(quickstart.config("bkd", rounds=2),
+                              num_edges=len(edges), aggregation_r=2)
+    for scenario in ("async_uniform", "hier_uniform"):
+        first, hists = {}, {}
+        for device in ("cpu", "cuda"):
+            sim = build_scenario(scenario, len(edges), aggregation_r=2)
+            fl = FederatedKD(adapter, cfg, core, edges, test, scheduler=sim,
+                             device=device)
+            state = fl.pretrain_core(0)
+            plan = sim.plans(cfg.rounds)[0]
+            teachers = fl.train_round_edges(
+                [state] * len(plan.tasks), plan.edge_ids,
+                seed=cfg.seed + 31 * plan.round_idx)
+            stepper = fl.distill_stepper(state, teachers, plan.round_idx,
+                                         edge_ids=plan.edge_ids)
+            stepper.step(max_steps=1)
+            first[device] = stepper.losses[0].item()
+            _, hist = FederatedKD(adapter, cfg, core, edges, test,
+                                  scheduler=sim, device=device).run(
+                                      0, log=None)
+            hists[device] = [(h.edges, h.staleness, h.test_acc)
+                             for h in hist]
+        rel = abs(first["cuda"] - first["cpu"]) / abs(first["cpu"])
+        gap = max(abs(a[2] - b[2]) for a, b in zip(hists["cuda"],
+                                                   hists["cpu"]))
+        print(f"[fl async parity] bkd {scenario}: first Phase-2 loss card "
+              f"{first['cuda']:.7f} cpu {first['cpu']:.7f} (relative "
+              f"{rel:.3g}, limit 1e-5); rounds (edges, staleness, test_acc) "
+              f"card {hists['cuda']} cpu {hists['cpu']} (max gap {gap:.4f}, "
+              f"limit 0.02)")
+        check(rel <= 1e-5, f"{scenario}: first Phase-2 loss differs by {rel}")
+        check(gap <= 0.02, f"{scenario}: test_acc differs by {gap}")
+        check([h[:2] for h in hists["cuda"]] == [h[:2] for h in hists["cpu"]]
+              and len(hists["cuda"]) == cfg.rounds,
+              f"{scenario}: rounds differ {hists}")
+
+
+def phase_async_bench():
+    """The port's ``async_bench --smoke`` on the card (5 scenarios x bkd,
+    kd, fedavg at 2 rounds over 4 edges, the 100k-edge timeline) with the
+    JAX package's exit rule; the kd pair's launches over it."""
+    for c in KD_COUNTERS.values():
+        c.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = async_bench.main(["--smoke", "--device", "cuda"])
+    out = buf.getvalue()
+    report = json.loads(out[out.index("\n{") + 1:])
+    launches = {n: c.launches for n, c in KD_COUNTERS.items()}
+    for name, sc in report["scenarios"].items():
+        t = sc["timeline"]
+        print(f"[async bench] {name}: max staleness {t['max_staleness']}, "
+              f"mean {t['mean_staleness']:.4f}, teachers a round "
+              f"{t['teachers_per_round']}; " + ", ".join(
+                  f"{m} final {v['final_acc']} mean {v['mean_acc']} "
+                  f"({v['seconds']}s)" for m, v in sc["methods"].items())
+              + f"; bkd_minus_kd {sc.get('bkd_minus_kd')}")
+    fs = report["fleet_scale"]
+    print(f"[async bench] fleet scale: {fs['edges']} edges x {fs['rounds']} "
+          f"rounds in {fs['seconds']}s (budget {fs['budget_seconds']}s), "
+          f"hierarchical {fs['hierarchical']}, heap vs fleet "
+          f"{fs['heap_vs_fleet']}; kd launches {launches}; exit {rc}")
+    check(rc == 0, "async bench: its exit rule failed")
+    check(launches["kd_stats_fwd"] > 0 and launches["kd_grad_bwd"] > 0,
+          f"async bench: kd launches {launches}")
+
+
+def phase_transport_frontiers():
+    """The port's transport bench (``--smoke`` sizes) on the two slice-7
+    regimes, ``async_uniform`` and ``hier_uniform``, on the card, with
+    ``bench_sim_accounting``'s gates: identity equal to no transport bit
+    for bit, every lossy codec compressing, the quant pair launched.
+    Returns the quant pair's launches."""
+    for c in KD_COUNTERS.values():
+        c.launches = 0
+    scenarios = {}
+    for name in ("async_uniform", "hier_uniform"):
+        scenarios[name] = out = transport_bench.bench_frontier(
+            name, rounds=2, num_edges=4, epochs=(3, 3, 2), seed=0,
+            device="cuda")
+        for p in [dict(out["baseline"], codec="none")] + out["frontier"]:
+            print(f"[transport frontiers] {name}/{p['codec']}: final_acc "
+                  f"{p['final_acc']} mean_acc {p['mean_acc']} uplink "
+                  f"{p['uplink_bytes']} B from {p['teachers']} teachers "
+                  f"({p.get('compression_vs_identity')}x vs identity) in "
+                  f"{p['seconds']}s")
+    launches = {n: c.launches for n, c in KD_COUNTERS.items()}
+    acct = transport_bench.bench_sim_accounting(seed=0)
+    core_payload = acct["hierarchical"]["core_payload_bytes"]
+    ok = transport_bench.gates(scenarios, acct)
+    print(f"[transport frontiers] launches {launches}; sim accounting "
+          f"heap_fleet_bit_identical {acct['heap_fleet_bit_identical']}, "
+          f"split_consistent {acct['hierarchical']['split_consistent']}, "
+          f"core payload {core_payload} B; gates {ok}")
+    check(ok, "transport frontiers: a gate failed")
+    check(core_payload == transport_bench.mlp_payload_bytes() == 27688.0,
+          f"transport frontiers: core payload {core_payload}")
+    check(launches["kd_quant_stats_fwd"] > 0
+          and launches["kd_quant_grad_bwd"] > 0,
+          f"transport frontiers: quant launches {launches}")
+    return launches["kd_quant_stats_fwd"], launches["kd_quant_grad_bwd"]
+
+
+# -- slice 4, the rest: the encoder and recurrent training ------------------
+
+HUBERT_BATCH, HUBERT_FRAMES = 8, 500   # 10 s of audio at 50 frames/s
+
+
+def _hubert_batch(cfg, b, s, device, seed=0):
+    """Feature frames and codebook labels drawn from ``seed``; every 4th
+    frame masked (the frames the masked CE scores)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mask = torch.zeros(b, s, dtype=torch.bool, device=device)
+    mask[:, ::4] = True
+    return {"features": torch.randn(b, s, cfg.feat_dim, generator=gen,
+                                    device=device),
+            "labels": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                    device=device),
+            "mask": mask}
+
+
+def phase_hubert():
+    """hubert-xlarge at full width and depth (48 layers, d_model 1280,
+    bf16, AdamW): 3 masked pretrain steps on 8 x 500 frames, each step's
+    seconds and the peak memory printed; then SMOKE's forward logits (with
+    the mask) and masked pretrain loss, f32 with TF32 off, card vs CPU from
+    one start state (logits within 1e-4, loss within 1e-5)."""
+    torch.cuda.empty_cache()
+    cfg = registry.get_config("hubert-xlarge")
+    params = Transformer.init(cfg, 0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    opt = optimizers.adamw(3e-4)
+    state = opt.init(params)
+    step = St.make_pretrain_step(cfg, opt, loss_chunk=HUBERT_FRAMES)
+    batch = _hubert_batch(cfg, HUBERT_BATCH, HUBERT_FRAMES, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, i)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    print(f"[hubert] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters in {cfg.param_dtype}, "
+          f"AdamW; masked pretrain on {HUBERT_BATCH} x {HUBERT_FRAMES} "
+          f"frames (every 4th masked): step s {[round(t, 4) for t in secs]}, "
+          f"losses {[round(v, 4) for v in losses]}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B")
+    check(all(math.isfinite(v) for v in losses), f"hubert: losses {losses}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = registry.get_smoke_config("hubert-xlarge")
+    weights = params_to_numpy(Transformer.init(cfg, 3, device="cpu"))
+    weights["mask_embed"] = np.random.default_rng(0).standard_normal(
+        weights["mask_embed"].shape).astype(np.float32)
+    cpu = _hubert_batch(cfg, 2, 64, "cpu", seed=1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = {k: v.to(dev) for k, v in cpu.items()}
+        params = params_from_numpy(weights, dev)
+        with torch.no_grad():
+            logits, _ = Transformer.apply(
+                cfg, params, {k: batch[k] for k in ("features", "mask")})
+        _, _, m = St.make_pretrain_step(cfg, optimizers.adamw(3e-4),
+                                        loss_chunk=32)(
+            params, optimizers.adamw(3e-4).init(params), batch, 0)
+        out[dev] = (logits.cpu(), float(m["loss"]))
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    dloss = abs(out["cuda"][1] - out["cpu"][1])
+    print(f"[hubert] SMOKE parity card vs CPU: logits max abs diff "
+          f"{err:.3g} (limit 1e-4), masked pretrain loss {out['cuda'][1]:.6f}"
+          f" vs {out['cpu'][1]:.6f} (diff {dloss:.3g}, limit 1e-5)")
+    check(err <= 1e-4, f"hubert parity: logits differ by {err}")
+    check(dloss <= 1e-5, f"hubert parity: loss differs by {dloss}")
+
+
+def phase_recurrent_train(serve_ssd_launches, rg_params):
+    """Mamba-2 370m trained at full width and depth on the card
+    (``launch.train --full --method bkd --rounds 1 --steps-per-phase 3``,
+    bf16, AdamW): the training steps take the plain scans (``ssd`` launches
+    0, beside phase 19's serving launches), the Phase-2 loss through the kd
+    pair.  Then one SMOKE pretrain step of recurrentgemma-9b and of
+    mamba2-370m card vs CPU (f32, TF32 off, from one start state): loss
+    within 1e-5, each gradient leaf within 1e-4 of its largest CPU entry,
+    no scan kernel launched."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_mod.ssd.launches = rglru_mod.rglru.launches = 0
+    argv = ["--full", "--arch", "mamba2-370m", "--method", "bkd", "--rounds",
+            "1", "--steps-per-phase", "3", "--device", "cuda"]
+    t0 = time.perf_counter()
+    params, out, launches = _train(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p0, p1, p2, rate = [], [], [], []
+    for m in _PHASE_S.finditer(out):
+        for lst, v in zip((p0, p1, p2, rate), m.groups()):
+            if v is not None:
+                lst.append(float(v))
+    print(f"[recurrent train] mamba2-370m full width, 48 SSD layers, bf16, "
+          f"batch 8 x 64 tokens, 3 Phase-2 steps in {wall:.1f}s: phase 0 "
+          f"{p0} s, phase 1 {p1} s, phase 2 {p2} s = {rate} steps/s; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
+          f"ssd launches in training {ssd_mod.ssd.launches} (phase 19's "
+          f"serving: {serve_ssd_launches}); kd launches {launches}")
+    check(ssd_mod.ssd.launches == 0 and rglru_mod.rglru.launches == 0,
+          "recurrent train: a scan kernel launched under autograd")
+    check(launches["kd_stats_fwd"] == 3 and launches["kd_grad_bwd"] == 3,
+          f"recurrent train: kd launches {launches}")
+    check(all(math.isfinite(float(v)) for v in re.findall(r"loss=(\S+)",
+                                                          out)),
+          "recurrent train: a non-finite loss")
+    del params
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grad_opt = optimizers.Optimizer(
+        init=lambda p: {}, update=lambda g, s, p, step, lr=None: (g, s))
+    toks = np.random.default_rng(8).integers(0, 256, size=(4, 65))
+    for arch in ("recurrentgemma-9b", "mamba2-370m"):
+        cfg = registry.get_smoke_config(arch)
+        weights = params_to_numpy(Transformer.init(cfg, 2, device="cpu"))
+        out = {}
+        ssd_mod.ssd.launches = rglru_mod.rglru.launches = 0
+        for dev in ("cpu", "cuda"):
+            batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                     "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+            step = St.make_pretrain_step(cfg, grad_opt, loss_chunk=32)
+            grads, _, m = step(params_from_numpy(weights, dev), {}, batch, 0)
+            out[dev] = (list(_leaves(params_to_numpy(grads))),
+                        float(m["loss"]))
+        dloss = abs(out["cuda"][1] - out["cpu"][1])
+        worst = max(float(np.abs(g - w).max()) / max(float(np.abs(w).max()),
+                                                      1e-30)
+                    for g, w in zip(out["cuda"][0], out["cpu"][0]))
+        print(f"[recurrent train] {cfg.name} f32 pretrain step (4 x 64 "
+              f"tokens, 2 loss chunks) card vs CPU: loss {out['cuda'][1]:.7f}"
+              f" vs {out['cpu'][1]:.7f} (diff {dloss:.3g}, limit 1e-5); "
+              f"gradients within {worst:.3g} of each leaf's largest (limit "
+              f"1e-4); scan launches ssd {ssd_mod.ssd.launches}, rglru "
+              f"{rglru_mod.rglru.launches}")
+        check(dloss <= 1e-5, f"recurrent train: {cfg.name} loss {dloss}")
+        check(worst <= 1e-4, f"recurrent train: {cfg.name} gradients {worst}")
+        check(ssd_mod.ssd.launches == rglru_mod.rglru.launches == 0,
+              f"recurrent train: {cfg.name} launched a scan kernel")
+    n = rg_params
+    print(f"[recurrent train] recurrentgemma-9b is not trained at full width "
+          f"here: its {n / 1e9:.3f} B parameters (phase 19) need "
+          f"{12 * n / 1e9:.1f} GB as f32 weights with AdamW's two f32 "
+          f"moments ({8 * n / 1e9:.1f} GB for the moments alone), more than "
+          f"the card's {torch.cuda.get_device_properties(0).total_memory} B")
 
 
 def _leaves(tree):
@@ -2569,7 +2993,7 @@ def main():
     ssd_entry = timed(phase_ssd_kernel)
     rglru_entry = timed(phase_rglru_kernel)
     timed(phase_swa_kernel, (RG_SWA_CASE,))
-    ssd_entry["launches"], rglru_entry["launches"] = timed(
+    ssd_entry["launches"], rglru_entry["launches"], rg_params = timed(
         phase_serve_recurrent)
     timed(phase_recurrent_parity)
     timed(phase_phase2_bench)
@@ -2580,6 +3004,16 @@ def main():
     timed(phase_moe_parity)
     timed(phase_llm_phase2)
     timed(phase_llm_parity)
+    launches = timed(phase_fl_async)
+    for e, n in zip(kd_entries, launches):
+        e["launches"] += n
+    timed(phase_fl_async_parity)
+    timed(phase_async_bench)
+    launches = timed(phase_transport_frontiers)
+    for e, n in zip(kdq_entries, launches):
+        e["launches"] += n
+    timed(phase_hubert)
+    timed(phase_recurrent_train, ssd_entry["launches"], rg_params)
     timed(phase_kernels_bench)
     print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries
                       + [swa_entry, ssd_entry, rglru_entry]}))

@@ -3,9 +3,11 @@
 The paper's uplink is the edge→core link each round's teacher must cross;
 ``repro_torch.transport`` makes that link a pluggable codec (identity,
 top-k, int8, int4 affine quantization, entropy filtering).  This benchmark
-runs the same FL problem under every codec and reports one frontier per
-round regime: final/mean accuracy against exact uplink bytes from the
-Phase-2 engine's accounting (``DistillEngine.uplink_log``).  The same
+runs the same FL problem under every codec across three round regimes (the
+synchronous paper default ``none``, the emergent-staleness timeline
+``async_uniform`` and the two-level fleet ``hier_uniform``) and reports one
+frontier per regime: final/mean accuracy against exact uplink bytes from
+the Phase-2 engine's accounting (``DistillEngine.uplink_log``).  The same
 problem, codecs and gates as the JAX package's
 ``benchmarks/transport_bench.py``:
 
@@ -14,13 +16,11 @@ problem, codecs and gates as the JAX package's
   close);
 - every lossy codec compresses: ``int4 < int8 < identity`` in bytes, and
   the filtered ``entropy:0.5+int8`` costs at most int8 plus a quarter of
-  identity.
-
-Only the synchronous regime (``--scenarios none``, the default) runs in the
-port today.  ``async_uniform`` and ``hier_uniform`` go through
-``build_scenario``, which raises naming the slice that ports their
-simulators; the simulator-level byte accounting (``bench_sim_accounting``
-in the JAX package) is not ported either and waits for the same slice.
+  identity;
+- the heap and fleet simulators report bit-identical uplink-byte stats for
+  one timeline (``heap_fleet_bit_identical``), and the hierarchical fleet's
+  edge-logit and core-snapshot bytes add up, in all and region by region
+  (``split_consistent``): ``bench_sim_accounting``.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.transport_bench \\
         [--device cpu] [--smoke] [--out f.json]
@@ -33,13 +33,20 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.benchmarks.common import build_setup
 from repro_torch.core.fl import FederatedKD, FLConfig
+from repro_torch.core.scheduler import build_scenario
+from repro_torch.transport import parse_codec
 
 #: The frontier: the exact baseline plus every lossy family, including one
 #: filter composition.  "none" is the control the identity gate compares to.
 CODEC_SPECS = ("identity", "topk:16", "int8", "int4", "entropy:0.5+int8")
+
+#: One synchronous regime, one emergent-staleness timeline, one two-level
+#: fleet: the frontier must survive all three plan streams.
+SCENARIO_NAMES = ("none", "async_uniform", "hier_uniform")
 
 METHOD = "bkd"
 
@@ -53,10 +60,8 @@ def run_one(scenario, transport, *, rounds, num_edges, epochs, seed,
                    core_epochs=epochs[0], edge_epochs=epochs[1],
                    kd_epochs=epochs[2], batch_size=128, seed=seed,
                    transport=transport)
-    scheduler = None
-    if scenario != "none":
-        from repro_torch.core.scheduler import build_scenario
-        scheduler = build_scenario(scenario, num_edges, seed=seed)
+    scheduler = (None if scenario == "none" else
+                 build_scenario(scenario, num_edges, seed=seed))
     fl = FederatedKD(adapter, cfg, core, edges, test, scheduler=scheduler,
                      device=device)
     t0 = time.time()
@@ -107,9 +112,66 @@ def bench_frontier(scenario, *, rounds, num_edges, epochs, seed,
     }
 
 
-def gates(scenarios):
+def mlp_payload_bytes():
+    """Wire bytes of one region→core snapshot: one float32 a weight of the
+    MLP the frontiers train (32-64-64-10, ``build_setup``'s adapter)."""
+    from repro_torch.nn import resnet as R
+    params = R.mlp_init(torch.Generator().manual_seed(0), 32, 64, 10, 2)
+    return float(sum(4 * p.numel() for p in params.values()))
+
+
+def bench_sim_accounting(seed=0):
+    """Uplink-byte accounting at the simulator level: the heap and fleet
+    simulators must report bit-identical byte stats for the same timeline,
+    and the hierarchical fleet splits edge-logit vs core-snapshot bytes per
+    region."""
+    from repro_torch.core.fleet import (FleetSimulator,
+                                        HierarchicalFleetSimulator)
+    from repro_torch.core.simulator import BufferedWindow, EventDrivenSimulator
+
+    payload = float(parse_codec("int8").payload_bytes(2048, 10))
+    args = dict(trigger=BufferedWindow(8), seed=seed, payload_bytes=payload)
+    heap = EventDrivenSimulator(512, profiles="heavy_tail", **args)
+    heap.plans(30)
+    fleet = FleetSimulator(512, profiles="heavy_tail", **args)
+    fleet.plans(30)
+    keys = ("uplink_bytes", "wasted_uplink_bytes")
+    parity = all(heap.stats[k] == fleet.stats[k] for k in keys)
+
+    # Region→core snapshots are parameters, not logits.
+    core_payload = mlp_payload_bytes()
+    hier = HierarchicalFleetSimulator(
+        512, 16, "uniform", region_trigger=BufferedWindow(8),
+        core_trigger=BufferedWindow(4), seed=seed,
+        payload_bytes=payload, core_payload_bytes=core_payload)
+    hier.plans(10)
+    hs = hier.stats
+    split_ok = (hs["uplink_bytes"]
+                == hs["edge_uplink_bytes"] + hs["core_uplink_bytes"]
+                and sum(hs["region_uplink_bytes"]) == hs["uplink_bytes"])
+    print(f"# sim accounting: heap==fleet {parity}, hier split {split_ok} "
+          f"({hs['uplink_bytes'] / 1e6:.1f} MB over "
+          f"{hs['regions']} regions)", flush=True)
+    return {
+        "payload_bytes_per_teacher": payload,
+        "heap_fleet_bit_identical": parity,
+        "heap_stats": {k: heap.stats[k] for k in keys},
+        "fleet_stats": {k: fleet.stats[k] for k in keys},
+        "hierarchical": {
+            "core_payload_bytes": core_payload,
+            "edge_uplink_bytes": hs["edge_uplink_bytes"],
+            "core_uplink_bytes": hs["core_uplink_bytes"],
+            "uplink_bytes": hs["uplink_bytes"],
+            "region_uplink_bytes": list(hs["region_uplink_bytes"]),
+            "split_consistent": split_ok,
+        },
+    }
+
+
+def gates(scenarios, sim_accounting=None):
     """The acceptance checks over a report's scenarios: finite accuracies,
-    identity bit-for-bit, and every lossy codec compressing."""
+    identity bit-for-bit, every lossy codec compressing, and (given
+    ``bench_sim_accounting``'s result) its two gates."""
     ok = all(np.isfinite(p["final_acc"])
              for s in scenarios.values() for p in s["frontier"])
     ok &= all(s["identity_bit_for_bit"] for s in scenarios.values())
@@ -117,6 +179,9 @@ def gates(scenarios):
         by = {p["codec"]: p["uplink_bytes"] for p in s["frontier"]}
         ok &= by["int4"] < by["int8"] < by["identity"]
         ok &= by["entropy:0.5+int8"] <= by["int8"] + by["identity"] // 4
+    if sim_accounting is not None:
+        ok &= sim_accounting["heap_fleet_bit_identical"]
+        ok &= sim_accounting["hierarchical"]["split_consistent"]
     return bool(ok)
 
 
@@ -127,9 +192,9 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--edges", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--scenarios", default="none",
-                    help="comma-separated scenario names (the async and "
-                         "hierarchical ones are not ported yet)")
+    ap.add_argument("--scenarios", default=",".join(SCENARIO_NAMES),
+                    help="comma-separated scenario names (default: the "
+                         "synchronous, async and hierarchical regimes)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -143,18 +208,20 @@ def main(argv=None):
         scenarios[name] = bench_frontier(name, rounds=rounds, num_edges=edges,
                                          epochs=epochs, seed=args.seed,
                                          device=args.device)
+    sim_accounting = bench_sim_accounting(seed=args.seed)
     report = {
         "config": {"smoke": args.smoke, "rounds": rounds, "edges": edges,
                    "seed": args.seed, "method": METHOD,
                    "codecs": list(CODEC_SPECS), "device": args.device},
         "scenarios": scenarios,
+        "sim_accounting": sim_accounting,
     }
     doc = json.dumps(report, indent=2)
     print(doc)
     if args.out:
         with open(args.out, "w") as f:
             f.write(doc + "\n")
-    return 0 if gates(scenarios) else 1
+    return 0 if gates(scenarios, sim_accounting) else 1
 
 
 if __name__ == "__main__":

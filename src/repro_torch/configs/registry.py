@@ -1,8 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the architectures the port can run are registered.  The JAX package's
-other ids are known by name so that asking for one says it is not ported
-yet rather than that it does not exist.
+Every architecture of the JAX package's registry, with the same ids and
+the same values.
 """
 
 from __future__ import annotations
@@ -22,12 +21,7 @@ ARCHS = {
     "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe_42b_a6_6b",
-}
-
-# Registered in the JAX package, waiting for their sub-blocks to be ported;
-# each names the ROADMAP.md queue 1 slice it waits for.
-NOT_PORTED = {
-    "hubert-xlarge": "slice 4: the encoder front-end",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
 
 
@@ -40,9 +34,6 @@ def list_archs():
 
 
 def _module(arch):
-    if arch in NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported to PyTorch yet (ROADMAP.md "
-                       f"queue 1, {NOT_PORTED[arch]}); ported: {sorted(ARCHS)}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     return importlib.import_module(ARCHS[arch])

@@ -6,15 +6,19 @@ Phases:
              (or from stale weights when it is a straggler)  (L_edge, Eq. 2)
     Phase 2  distill the returned teacher(s) into the core   (L_KD / L_BKD)
 
-The PyTorch counterpart of the JAX package's ``repro/core/fl.py`` on the
-synchronous path: methods come by name from the registry
-(``core/methods.py``), rounds from a plan source with ``plans(rounds)``
-(the synchronous ``RoundScheduler``, or the legacy ``FLConfig.straggler``
-strings), Phase 1 runs the R edges of a round together
-(``core/vectorized.py``; ``vectorize=False`` for the sequential loop) and
-Phase 2 runs through ``core/distill_engine.py`` with a pluggable loss
-backend.  On a CUDA device ``loss_backend="auto"`` sends every Phase-2
-loss through the hand-written kernel pair ``kd_stats_fwd``/``kd_grad_bwd``.
+The PyTorch counterpart of the JAX package's ``repro/core/fl.py``: methods
+come by name from the registry (``core/methods.py``), rounds from a plan
+source with ``plans(rounds)`` (the synchronous ``RoundScheduler`` or the
+legacy ``FLConfig.straggler`` strings; the event-driven simulator of
+``core/simulator.py`` or its vectorized twin in ``core/fleet.py``, whose
+staleness emerges from device heterogeneity; or the two-level
+region/core stream of ``fleet.HierarchicalFleetSimulator``, which ``run``
+routes to the hierarchical round loop), Phase 1 runs the R edges of a
+round together (``core/vectorized.py``; ``vectorize=False`` for the
+sequential loop) and Phase 2 runs through ``core/distill_engine.py`` with
+a pluggable loss backend.  On a CUDA device ``loss_backend="auto"`` sends
+every Phase-2 loss through the hand-written kernel pair
+``kd_stats_fwd``/``kd_grad_bwd``.
 ``FLConfig.transport`` puts an edge→core uplink codec between the teachers
 and the core (``repro_torch.transport``); with ``int8``/``int4`` and one
 teacher a round the loss runs on the dequant-fused pair
@@ -44,9 +48,6 @@ from repro_torch.core.vectorized import VectorizedEdgeEngine
 from repro_torch.data.pipeline import Dataset, batches
 from repro_torch.optim import sgd_momentum, step_decay
 from repro_torch.tree import tree_device
-
-_HIER_NOT_PORTED = ("not ported yet (ROADMAP.md queue 1, slice 7: async, "
-                    "fleet and hierarchical FL)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,14 +289,26 @@ class FederatedKD:
             return "kd"
         return cfg.method
 
+    def _shard_weights(self, edge_ids):
+        """Teacher weights: the sizes of the edges' shards."""
+        return ([len(self.edge_dss[e]) for e in edge_ids]
+                if edge_ids is not None else None)
+
+    def distill(self, state, teacher_states, round_idx, edge_ids=None):
+        """Distill the round's teachers into ``state`` through the Phase-2
+        engine (the teachers weighted by their shards' sizes)."""
+        return self.distill_engine.run(
+            state, teacher_states, round_idx,
+            method=self._round_method(round_idx),
+            teacher_weights=self._shard_weights(edge_ids))
+
     def distill_stepper(self, state, teacher_states, round_idx, edge_ids=None):
         """A resumable ``RoundStepper`` for this round's Phase 2 (the
         teachers weighted by their shards' sizes)."""
-        weights = ([len(self.edge_dss[e]) for e in edge_ids]
-                   if edge_ids is not None else None)
         return self.distill_engine.stepper(
             state, teacher_states, round_idx,
-            method=self._round_method(round_idx), teacher_weights=weights)
+            method=self._round_method(round_idx),
+            teacher_weights=self._shard_weights(edge_ids))
 
     # Full protocol ----------------------------------------------------------
     def _resolve_init(self, task, core_log, state):
@@ -348,10 +361,80 @@ class FederatedKD:
         ``(state, history)``."""
         plans = list(self.scheduler.plans(self.cfg.rounds))
         if any(getattr(p, "level", "") == "region" for p in plans):
-            raise NotImplementedError(
-                f"hierarchical plan streams are {_HIER_NOT_PORTED}")
+            # A two-level stream (fleet.HierarchicalFleetSimulator): region
+            # rounds keep per-region models, core rounds distill their
+            # uplinked snapshots.
+            state = self.pretrain_core(key)
+            return self._run_hierarchical(state, plans, log)
         # The flat loop is the live trainer driven to completion.
         from repro_torch.live.trainer import LiveTrainer
         trainer = LiveTrainer(self, key, plans=plans, log=log)
         trainer.run()
         return trainer.state, self.history
+
+    def _run_hierarchical(self, state, plans, log):
+        """Drive a two-level plan stream: region rounds distill edge
+        teachers into per-region models; core rounds distill the uplinked
+        region-model snapshots into the core (weighted by the regions'
+        total shard sizes), then sync the consumed regions back down.
+        ``history`` records one entry per *core* round."""
+        cfg = self.cfg
+        level = lambda p: getattr(p, "level", "")  # noqa: E731
+        region_plans = [p for p in plans if level(p) == "region"]
+        core_plans = [p for p in plans if level(p) == "core"]
+        regions = sorted({p.region for p in region_plans})
+        # Each region resolves its own emergent staleness against its own
+        # past models, kept as deep as its deepest task needs.
+        keep = {g: 1 + max((t.staleness
+                            for p in region_plans if p.region == g
+                            for t in p.tasks if t.staleness > 0), default=0)
+                for g in regions}
+        # Only region-model versions some core round consumes are kept,
+        # each until it is consumed.
+        needed = {(g, v) for p in core_plans for g, v in p.region_versions}
+        reg = {g: state for g in regions}       # current region models
+        reg_log = {g: [] for g in regions}
+        snaps = {}
+        prev_edge_ds, prev_preds = None, None
+        for plan in plans:
+            if level(plan) == "region":
+                g = plan.region
+                reg_log[g] = (reg_log[g] + [reg[g]])[-keep[g]:]
+                inits = [self._resolve_init(t, reg_log[g], reg[g])
+                         for t in plan.tasks]
+                teachers = self.train_round_edges(
+                    inits, plan.edge_ids, seed=cfg.seed + 31 * plan.round_idx)
+                reg[g] = self.distill(reg[g], teachers, plan.round_idx,
+                                      edge_ids=plan.edge_ids)
+                v = plan.region_round + 1
+                if (g, v) in needed:
+                    snaps[(g, v)] = reg[g]
+                if log:
+                    log(f"[region {g} r{plan.region_round:02d}] "
+                        f"edges={plan.edge_ids} t={plan.time:.2f} "
+                        f"via {plan.trigger}")
+                continue
+            # Core round: the uplinked region-model snapshots are the
+            # teachers, weighted by their regions' total shard sizes.
+            teachers = [snaps.pop((g, v)) for g, v in plan.region_versions]
+            weights = [sum(len(self.edge_dss[e]) for e in members)
+                       for members in plan.member_edges]
+            cur_ds = self._round_union(
+                [e for members in plan.member_edges for e in members])
+            pre_preds = prev_preds
+            state = self.distill_engine.run(state, teachers, plan.round_idx,
+                                            method=cfg.method,
+                                            teacher_weights=weights)
+            consumed = [g for g, _ in plan.region_versions]
+            rec, cur_preds = self._record_round(
+                state, plan.core_round, consumed, plan.straggler,
+                [t.staleness for t in plan.tasks], cur_ds, pre_preds,
+                prev_edge_ds)
+            for g in consumed:
+                reg[g] = state      # sync-down: the region gets the new core
+            if log:
+                log(f"[core round {plan.core_round:02d}] regions={consumed} "
+                    f"test_acc={rec.test_acc:.4f} t={plan.time:.2f} "
+                    f"via {plan.trigger}")
+            prev_edge_ds, prev_preds = cur_ds, cur_preds
+        return state, self.history

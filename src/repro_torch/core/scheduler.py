@@ -1,10 +1,8 @@
 """Round scheduling — which edges train this round, and from which weights.
 
-A numpy-only copy of the JAX package's ``repro/core/scheduler.py``: the
-synchronous part (samplers, staleness policies, ``RoundScheduler``,
-``SCENARIOS``); the asynchronous, fleet and hierarchical scenarios raise
-``NotImplementedError`` in :func:`build_scenario`.  The original's text
-follows.
+A numpy-only copy of the JAX package's ``repro/core/scheduler.py``; the
+asynchronous, fleet and hierarchical scenarios build the port's copies of
+``core/simulator.py`` and ``core/fleet.py``.  The original's text follows.
 
 The paper's straggler experiments (§4.3, Figs. 9 & 11) are two points in a
 much larger scenario space: every round, the orchestrator must decide (a)
@@ -293,20 +291,53 @@ FLEET_SCENARIOS = ("fleet_uniform",)
 HIER_SCENARIOS = ("hier_uniform", "hier_heavy_tail")
 
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md queue 1, slice 7: async, fleet "
-               "and hierarchical FL)")
+def _hier_regions(num_edges: int) -> int:
+    """Default region count for the hier_* scenarios: ~sqrt(num_edges),
+    clamped so every region owns at least two edges (one region when the
+    fleet is too small to split)."""
+    return max(1, min(max(2, int(np.sqrt(num_edges))), num_edges // 2))
 
 
 def build_scenario(name: str, num_edges: int, *, aggregation_r: int = 1,
                    seed: int = 0):
-    """Instantiate a named synchronous scenario from :data:`SCENARIOS` as a
-    :class:`RoundScheduler` (a plan source, ``.plans(rounds)``), which
-    drops into ``FederatedKD(..., scheduler=...)`` unchanged.  The
-    ``async_*``/``fleet_*``/``hier_*`` names raise ``NotImplementedError``:
-    their simulators are not ported yet."""
-    if name in ASYNC_SCENARIOS or name in FLEET_SCENARIOS \
-            or name in HIER_SCENARIOS:
-        raise NotImplementedError(f"scenario {name!r} is {_NOT_PORTED}")
+    """Instantiate a named scenario from :data:`SCENARIOS` — a
+    :class:`RoundScheduler` for the synchronous names, an
+    :class:`~repro_torch.core.simulator.EventDrivenSimulator` for the ``async_*``
+    names, a :class:`~repro_torch.core.fleet.FleetSimulator` /
+    :class:`~repro_torch.core.fleet.HierarchicalFleetSimulator` for the
+    ``fleet_*`` / ``hier_*`` names.  All are plan sources
+    (``.plans(rounds)``), so any drops into
+    ``FederatedKD(..., scheduler=...)`` unchanged."""
+    if name in FLEET_SCENARIOS or name in HIER_SCENARIOS:
+        # Imported lazily: fleet.py imports this module at its top.
+        from repro_torch.core.fleet import (FleetSimulator,
+                                      HierarchicalFleetSimulator)
+        from repro_torch.core.simulator import BufferedWindow, Deadline
+        if name == "fleet_uniform":
+            return FleetSimulator(num_edges, profiles="uniform",
+                                  trigger=BufferedWindow(max(aggregation_r, 1)),
+                                  seed=seed)
+        regions = _hier_regions(num_edges)
+        window = BufferedWindow(max(1, min(aggregation_r,
+                                           num_edges // regions)))
+        if name == "hier_uniform":
+            return HierarchicalFleetSimulator(
+                num_edges, regions, "uniform", region_trigger=window,
+                core_trigger=BufferedWindow(min(2, regions)), seed=seed)
+        return HierarchicalFleetSimulator(
+            num_edges, regions, "heavy_tail", region_trigger=window,
+            core_trigger=Deadline(interval=3.0), seed=seed)
+    if name in ASYNC_SCENARIOS:
+        # Imported lazily: simulator.py imports this module at its top.
+        from repro_torch.core.simulator import (BufferedWindow, Deadline,
+                                          DistillOnArrival,
+                                          EventDrivenSimulator)
+        profile = name[len("async_"):]
+        trigger = {"uniform": BufferedWindow(max(aggregation_r, 1)),
+                   "heavy_tail": Deadline(interval=2.0),
+                   "dropout": DistillOnArrival()}[profile]
+        return EventDrivenSimulator(num_edges, profiles=profile,
+                                    trigger=trigger, seed=seed)
     rr = RoundRobinSampler(num_edges)
     if name == "none":
         return RoundScheduler(rr, Fresh(), aggregation_r)

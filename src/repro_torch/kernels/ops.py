@@ -36,6 +36,17 @@ def swa_decode_attn(q, k_cache, v_cache, pos, *, window=None, ring=False):
                       ring=ring)
 
 
+def _forward_only(name, *tensors):
+    """The ``ssd`` and ``rglru`` kernels have no backward (nor has the JAX
+    package: its model trains through the plain scans), so a CUDA call
+    that autograd would have to differentiate raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"ops.{name} on a CUDA tensor is forward-only (the {name} kernel "
+            f"has no backward); train through the plain scan "
+            f"(use_kernel=False), as the model's full-sequence forward does")
+
+
 def ssd(x, dt, A, B, C, chunk):
     """The Mamba-2 SSD chunk scan (every SSD layer's prefill).  x (b, s, h,
     p), B and C (b, s, g, n) are cast to f32 as the JAX ``ops.ssd`` does;
@@ -47,6 +58,7 @@ def ssd(x, dt, A, B, C, chunk):
     x, B, C = x.float(), B.float(), C.float()
     if x.device.type == "cpu":
         return _ref.ssd_ref(x, dt, A, B, C, q)
+    _forward_only("ssd", x, dt, A, B, C)
     return ssd_kernel(x.contiguous(), dt.contiguous(), A.contiguous(),
                       B.contiguous(), C.contiguous(), q)
 
@@ -56,6 +68,7 @@ def rglru(a, b):
     layer's prefill).  a, b (B, S, D) f32 -> h (B, S, D) f32."""
     if a.device.type == "cpu":
         return _ref.rglru_ref(a, b)
+    _forward_only("rglru", a, b)
     return rglru_kernel(a.contiguous(), b.contiguous())
 
 

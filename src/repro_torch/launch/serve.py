@@ -92,6 +92,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = (registry.get_config(args.arch) if args.full
            else registry.get_smoke_config(args.arch))
+    if cfg.is_encoder:
+        raise SystemExit("encoder-only arch has no decode step")
     if args.ring:
         cfg = dataclasses.replace(cfg, sliding_window=32, ring_cache=True)
     params = Transformer.init(cfg, args.seed, device=device)

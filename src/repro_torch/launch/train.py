@@ -5,6 +5,12 @@ Runs the paper's protocol with transformer cores and edges: Phase 0
 pre-trains the core on the core token silo, each round fine-tunes an edge
 replica on its domain silo (Phase 1) and distills it back into the core
 with buffered KD (Phase 2) through the step functions of ``steps.py``.
+Rounds come from a plan source: a synchronous ``--scenario``, or the
+event-driven simulator (``--sim async:<profile>`` or an ``async_*``
+scenario) or its vectorized twin (``--sim fleet:<profile>``), whose
+staleness emerges from the device profiles; one teacher is distilled a
+round (distill-on-arrival), so the two-level ``hier_*`` streams are
+refused.
 
 By default ``--arch <id>`` runs its reduced (SMOKE) config; ``--full``
 runs the full-width config.  There is no mesh: the port trains on one
@@ -33,21 +39,21 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.core import distill
+from repro_torch.core.fleet import FleetSimulator
 from repro_torch.core.methods import (method_names, resolve_method,
                                       validate_backend)
 from repro_torch.core.scheduler import (ASYNC_SCENARIOS, FROZEN,
                                         HIER_SCENARIOS, SCENARIOS,
                                         build_scenario,
                                         max_retained_staleness)
+from repro_torch.core.simulator import (PROFILE_FAMILIES, DistillOnArrival,
+                                        EventDrivenSimulator)
 from repro_torch.data import make_token_stream
 from repro_torch.launch import steps as St
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adamw
 from repro_torch.transport import codec_names, parse_codec
 from repro_torch.tree import tree_map
-
-_SLICE7 = ("not ported yet (ROADMAP.md queue 1, slice 7: async, fleet and "
-           "hierarchical FL)")
 
 
 def _copy(tree):
@@ -103,12 +109,19 @@ def _parser():
                     help="Phase-2 'epoch' segments for --method melting: "
                          "the buffer re-clones at each segment start")
     ap.add_argument("--scenario", default="none", choices=sorted(SCENARIOS),
-                    help="round-scheduling policy; the async_*, fleet_* and "
-                         "hier_* names are not ported yet (slice 7)")
+                    help="round-scheduling policy; the async_* names run "
+                         "the event-driven simulator with distill-on-arrival "
+                         "(equivalent to --sim), the hier_* names are "
+                         "refused (two-level streams)")
     ap.add_argument("--sim", default="sync",
-                    help="'sync' (RoundScheduler via --scenario); "
-                         "'async:<profile>' and 'fleet:<profile>' are not "
-                         "ported yet (slice 7)")
+                    help="'sync' (RoundScheduler via --scenario), "
+                         "'async:<profile>': event-driven virtual-clock "
+                         "simulation over heterogeneous device profiles "
+                         f"({'|'.join(PROFILE_FAMILIES)}), staleness "
+                         "emergent from the timeline, or "
+                         "'fleet:<profile>': the same timeline from the "
+                         "vectorized FleetSimulator (plan for plan "
+                         "identical, scales to 100k+ edges)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--edges", type=int, default=2)
     ap.add_argument("--steps-per-phase", type=int, default=20)
@@ -146,20 +159,6 @@ def main(argv=None):
             codec = parse_codec(args.transport)
         except ValueError as e:
             ap.error(str(e))
-    if args.sim != "sync":
-        sim_kind, _, profile = args.sim.partition(":")
-        if sim_kind not in ("async", "fleet") or not profile:
-            ap.error(f"--sim must be 'sync', 'async:<profile>' or "
-                     f"'fleet:<profile>', got {args.sim!r}")
-        if args.scenario != "none":
-            ap.error(f"--sim {args.sim} conflicts with --scenario "
-                     f"{args.scenario}: the event-driven simulator replaces "
-                     f"the scenario's RoundScheduler")
-        raise NotImplementedError(f"--sim {args.sim}: the event-driven "
-                                  f"simulators are {_SLICE7}")
-    if args.scenario in HIER_SCENARIOS or args.scenario in ASYNC_SCENARIOS:
-        raise NotImplementedError(f"--scenario {args.scenario} is {_SLICE7}")
-
     device = resolve_device(args.device)
     cfg = (registry.get_config(args.arch) if args.full
            else registry.get_smoke_config(args.arch))
@@ -204,8 +203,43 @@ def main(argv=None):
     if codec is not None:
         kd_rows = args.steps_per_phase * args.batch * args.seq
         payload_bytes = float(codec.payload_bytes(kd_rows, cfg.vocab_size))
-    source = build_scenario(args.scenario, num_edges=args.edges,
-                            seed=args.seed)
+    # Plan source: the synchronous RoundScheduler, the event-driven async
+    # simulator (--sim async:<profile>, or an async_* scenario name), or its
+    # vectorized fleet-scale twin (--sim fleet:<profile>).  One teacher is
+    # distilled a round, so the simulated paths use the distill-on-arrival
+    # trigger (R = 1 a consumption).
+    if args.scenario in HIER_SCENARIOS:
+        # Two-level streams interleave region- and core-level plans; this
+        # flat R=1 loop cannot consume them.
+        ap.error(f"--scenario {args.scenario} emits a two-level region/core "
+                 f"plan stream; drive it through the CPU orchestrator "
+                 f"instead: python -m repro_torch.benchmarks.scenarios "
+                 f"--scenario "
+                 f"{args.scenario}")
+    profile, sim_kind = None, None
+    if args.sim != "sync":
+        sim_kind, _, profile = args.sim.partition(":")
+        if sim_kind not in ("async", "fleet") or not profile:
+            ap.error(f"--sim must be 'sync', 'async:<profile>' or "
+                     f"'fleet:<profile>', got {args.sim!r}")
+        if args.scenario != "none":
+            # Refuse rather than drop the scenario: the simulator replaces
+            # the RoundScheduler entirely.
+            ap.error(f"--sim {args.sim} conflicts with --scenario "
+                     f"{args.scenario}: the event-driven simulator replaces "
+                     f"the scenario's RoundScheduler")
+    elif args.scenario in ASYNC_SCENARIOS:
+        profile, sim_kind = args.scenario[len("async_"):], "async"
+    if profile is not None:
+        sim_cls = (FleetSimulator if sim_kind == "fleet"
+                   else EventDrivenSimulator)
+        source = sim_cls(args.edges, profiles=profile,
+                         trigger=DistillOnArrival(), seed=args.seed,
+                         payload_bytes=payload_bytes)
+        print(f"{sim_kind} simulator: profiles={profile}, distill-on-arrival")
+    else:
+        source = build_scenario(args.scenario, num_edges=args.edges,
+                                seed=args.seed)
 
     params = Transformer.init(cfg, args.seed, device=device)
     opt_state = opt.init(params)
@@ -248,7 +282,9 @@ def main(argv=None):
         stale = ("" if not task.stale else
                  " stale=w0" if task.staleness == FROZEN else
                  f" stale={task.staleness}")
-        print(f"[round {r}] edge {edge} trained{stale}, "
+        tinfo = (f" t={plan.time:.2f}" if getattr(plan, "trigger", "")
+                 else "")
+        print(f"[round {r}] edge {edge} trained{stale}{tinfo}, "
               f"loss={float(m['loss']):.4f} "
               f"(phase1 {time.perf_counter() - t1:.2f}s)")
 

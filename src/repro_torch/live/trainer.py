@@ -92,7 +92,10 @@ class LiveTrainer:
                 f"[round {r:02d}] edges={edge_ids} test_acc={rec.test_acc:.4f}"
                 + (f" prev_edge={rec.acc_prev_edge:.4f}"
                    if rec.acc_prev_edge is not None else "")
-                + (" (straggler)" if straggler_round else ""))
+                + (" (straggler)" if straggler_round else "")
+                # Async plans carry their event-time provenance.
+                + (f" t={plan.time:.2f} via {plan.trigger}"
+                   if getattr(plan, "trigger", "") else ""))
         self.prev_edge_ds, self.prev_preds = cur_ds, cur_preds
         self._plan = self._stepper = self._pre_preds = None
         self.cursor += 1

@@ -8,7 +8,15 @@ live under ``params["blocks"]["b{i}"]`` stacked on a leading layer axis (a
 Python loop over that axis replaces ``lax.scan``), remainder layers under
 ``"tail{j}"``.  Sub-blocks are attention ("attn", "local"), Mamba-2 SSD
 ("ssd") and RG-LRU ("rglru"), each with a dense MLP, a Mixture-of-Experts
-(``mlp="moe"``, with optional shared experts) or none.
+(``mlp="moe"``, with optional shared experts) or none.  An encoder
+(``is_encoder``, hubert) takes feature frames through ``in_proj`` instead
+of token ids, with masked frames replaced by ``mask_embed``, and attends
+bidirectionally with no rotary positions.
+
+The recurrent sub-blocks run their scans as the JAX package does: the
+full-sequence forward (``apply_hidden``, training) through the plain
+scans, the serving prefill (``prefill``) through the hand-written ``ssd``
+and ``rglru`` kernels on a CUDA tensor (``use_kernel=True``).
 """
 
 from __future__ import annotations
@@ -31,7 +39,6 @@ NEG_INF = -1e30
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1)"
 _ATTENTION = ("attn", "local")
 
 
@@ -74,7 +81,8 @@ class LMConfig:
     ssm_chunk: int = 128
     d_rnn: Optional[int] = None
     conv_width: int = 4
-    is_encoder: bool = False
+    is_encoder: bool = False         # hubert: bidirectional, frame inputs
+    feat_dim: int = 512              # audio front-end embedding dim
     is_vlm: bool = False             # vision patch embeds scattered into the sequence
     mrope_sections: tuple = (16, 24, 24)
     dtype: str = "bfloat16"          # activation dtype
@@ -115,7 +123,8 @@ class LMConfig:
             d_model=self.d_model, num_heads=self.num_heads,
             kv_heads=self.kv_heads, head_dim=self.hd, causal=self.causal,
             window=window, qk_norm=self.qk_norm, qkv_bias=self.qkv_bias,
-            rope=self.rope, rope_theta=self.rope_theta,
+            rope="none" if (self.is_encoder and self.rope == "rope")
+            else self.rope, rope_theta=self.rope_theta,
             mrope_sections=self.mrope_sections, q_chunk=self.q_chunk,
             ring_cache=self.ring_cache)
 
@@ -182,15 +191,13 @@ def _recurrent(cfg: LMConfig, kind: str):
 
 
 def _mixer_apply(cfg: LMConfig, kind: str, p, x, positions):
+    """The full-sequence mixer.  Recurrent blocks take the plain scans
+    (``use_kernel=False``), as the JAX model does: autograd runs through
+    them, on the card too."""
     if kind in _ATTENTION:
         return attn_lib.forward(p, cfg.attn_cfg(kind == "local"), x, positions)
-    if torch.is_grad_enabled() and x.device.type == "cuda":
-        raise NotImplementedError(
-            f"training through {kind!r} blocks on the card needs a backward "
-            f"kernel for ops.{'ssd' if kind == 'ssd' else 'rglru'}, which is "
-            f"{_NOT_PORTED}")
     lib, sub = _recurrent(cfg, kind)
-    return lib.forward(p, sub, x)
+    return lib.forward(p, sub, x, use_kernel=False)
 
 
 def _subblock_fwd(cfg: LMConfig, kind: str, p, x, positions):
@@ -385,12 +392,22 @@ class Transformer:
     def init(cfg: LMConfig, seed: int = 0, *, device="cuda"):
         """Random parameters with the JAX package's tree, shapes and init
         distributions, drawn from a ``torch.Generator`` seeded with
-        ``seed`` on ``device`` (so the values differ from the JAX init)."""
-        if cfg.is_encoder:
-            raise NotImplementedError(f"encoder front-ends are {_NOT_PORTED}")
+        ``seed`` on ``device`` (so the values differ from the JAX init).
+        An encoder gets ``in_proj`` (feat_dim -> d_model, with a zero bias)
+        and a zero ``mask_embed`` in place of the embedding table."""
         device = resolve_device(device)
         draw = _Draw(cfg, device, seed)
-        p = {"embed": {"table": draw((cfg.padded_vocab, cfg.d_model), 0.02)}}
+        if cfg.is_encoder:
+            p = {"in_proj": {
+                     "w": draw((cfg.feat_dim, cfg.d_model),
+                               1.0 / math.sqrt(cfg.feat_dim)),
+                     "b": torch.zeros(cfg.d_model, dtype=cfg.pdt,
+                                      device=device)},
+                 "mask_embed": torch.zeros(cfg.feat_dim, dtype=cfg.pdt,
+                                           device=device)}
+        else:
+            p = {"embed": {"table": draw((cfg.padded_vocab, cfg.d_model),
+                                         0.02)}}
         if cfg.n_super > 0:
             p["blocks"] = {f"b{i}": _subblock_init(cfg, kind, cfg.n_super, draw)
                            for i, kind in enumerate(cfg.block_pattern)}
@@ -407,10 +424,19 @@ class Transformer:
     @staticmethod
     def _embed_inputs(cfg: LMConfig, params, batch):
         """Token embeddings, with a VLM's ``vision_embeds`` (B, P, d)
-        written over the rows ``vision_positions`` (B, P) names, and the
-        rotary positions: ``batch["positions"]``, else the token index,
-        (B, S), or (B, 3, S) under M-RoPE."""
-        x = L.embedding(params["embed"], batch["tokens"]).to(cfg.adt)
+        written over the rows ``vision_positions`` (B, P) names, or an
+        encoder's ``features`` (B, S, feat_dim) through ``in_proj``, the
+        frames where ``batch["mask"]`` (B, S) is true replaced by
+        ``mask_embed``; and the rotary positions: ``batch["positions"]``,
+        else the token index, (B, S), or (B, 3, S) under M-RoPE."""
+        if cfg.is_encoder:
+            feats = batch["features"].to(cfg.adt)
+            if "mask" in batch:
+                feats = torch.where(batch["mask"][..., None].bool(),
+                                    params["mask_embed"].to(cfg.adt), feats)
+            x = L.dense(params["in_proj"], feats)
+        else:
+            x = L.embedding(params["embed"], batch["tokens"]).to(cfg.adt)
         if cfg.is_vlm and "vision_embeds" in batch:
             rows = torch.arange(x.shape[0], device=x.device)[:, None]
             x[rows, batch["vision_positions"].long()] = \
@@ -542,7 +568,8 @@ class Transformer:
                 c = {k: v.to(cfg.adt) for k, v in c.items()}
             else:   # f32 state, conv windows in h's dtype
                 lib, sub = _recurrent(cfg, kind)
-                y, c = lib.forward(p["mixer"], sub, h, return_cache=True)
+                y, c = lib.forward(p["mixer"], sub, h, use_kernel=True,
+                                   return_cache=True)
             x = x + y
             if cfg.mlp != "none":
                 m, _ = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))

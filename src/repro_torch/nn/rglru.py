@@ -6,9 +6,12 @@
     a_t = a^(c * r_t),  a = sigmoid(Lambda)  (per channel), c = 8
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-``forward`` runs the linear recurrence through
+``forward`` runs the linear recurrence as the JAX function does: with
+``use_kernel=False`` (the default, and the model's full-sequence forward,
+training included) through :func:`rglru_scan_reference`, which autograd
+differentiates; with ``use_kernel=True`` (the serving prefill) through
 :func:`repro_torch.kernels.ops.rglru`: the hand-written ``rglru`` kernel on
-a CUDA tensor, :func:`rglru_scan_reference` on a CPU one.  The block around
+a CUDA tensor, the same reference on a CPU one.  The block around
 it is Griffin's recurrent block: two linear branches, a short causal
 depthwise conv on the recurrent one, a GeLU gate.
 """
@@ -91,13 +94,14 @@ def rglru_scan_reference(a, b, h0=None):
     return b
 
 
-def forward(params, cfg: RGLRUConfig, x, *, return_cache=False):
+def forward(params, cfg: RGLRUConfig, x, *, use_kernel=False,
+            return_cache=False):
     """x: (B, S, D) -> (B, S, D) [, cache]."""
     xr_pre = x @ params["w_in_x"].to(x.dtype)
     gate = L.gelu(x @ params["w_in_gate"].to(x.dtype))
     xr = L.conv1d_depthwise(params["conv"], xr_pre)
     a, b = _gates(params, xr)
-    h = ops.rglru(a, b)
+    h = ops.rglru(a, b) if use_kernel else rglru_scan_reference(a, b)
     y = (h.to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
     if return_cache:
         kw = cfg.conv_width - 1

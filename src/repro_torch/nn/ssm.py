@@ -1,11 +1,14 @@
 """Mamba-2 SSD (state-space duality) block: the port of ``repro.nn.ssm``.
 
-``forward`` runs the chunked scan through
+``forward`` runs the chunked scan as the JAX function does: with
+``use_kernel=False`` (the default, and the model's full-sequence forward,
+training included) through :func:`ssd_reference` (the JAX package's
+chunked reference in plain PyTorch, which autograd differentiates); with
+``use_kernel=True`` (the serving prefill) through
 :func:`repro_torch.kernels.ops.ssd`: the hand-written ``ssd`` kernel on a
-CUDA tensor, :func:`ssd_reference` (the JAX package's chunked reference in
-plain PyTorch) on a CPU one.  ``decode_step`` is one token of the same
-recurrence in plain tensor code.  The JAX function's sharding constraints
-have no counterpart here.
+CUDA tensor, the same reference on a CPU one.  ``decode_step`` is one
+token of the same recurrence in plain tensor code.  The JAX function's
+sharding constraints have no counterpart here.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ssd import chunk_size
 from repro_torch.nn import layers as L
 
 
@@ -139,7 +143,8 @@ def _split_in_proj(params, cfg: SSDConfig, dtype):
     return (wz, wx, wB, wC, wdt), ({"w": cwx}, {"w": cwB}, {"w": cwC})
 
 
-def forward(params, cfg: SSDConfig, x, *, return_cache=False):
+def forward(params, cfg: SSDConfig, x, *, use_kernel=False,
+            return_cache=False):
     """Full-sequence forward.  x: (B, S, D) -> (B, S, D) [, cache]."""
     b, s, _ = x.shape
     di = cfg.d_inner
@@ -161,7 +166,11 @@ def forward(params, cfg: SSDConfig, x, *, return_cache=False):
     A = -torch.exp(params["A_log"].float())
     dtp = softplus(dt.float() + params["dt_bias"].float())
 
-    y, final = ops.ssd(xh, dtp, A, Bh, Ch, cfg.chunk)
+    if use_kernel:
+        y, final = ops.ssd(xh, dtp, A, Bh, Ch, cfg.chunk)
+    else:
+        y, final = ssd_reference(xh.float(), dtp, A, Bh.float(), Ch.float(),
+                                 chunk_size(cfg.chunk, s))
     y = y.to(x.dtype) + xh * params["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, di)
     # Gated RMSNorm (Mamba-2 style): norm(y) * silu(z).

@@ -419,8 +419,10 @@ def test_port_entry_points_and_unported_paths():
                        core, edges, test, device="cpu")
     fl.FederatedKD(adapter, dataclasses.replace(cfg, transport="int8"),
                    core, edges, test, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scheduler.build_scenario("async_uniform", 4)
+    # The async scenarios are ported: a plan source like the sync ones.
+    sim = scheduler.build_scenario("async_uniform", 4)
+    assert [len(p.tasks) for p in sim.plans(3)] == [1, 1, 1]
+    assert sim.stats["rounds"] == 3
     with pytest.raises(ValueError, match="unknown method"):
         fl.FederatedKD(adapter, dataclasses.replace(cfg, method="nope"),
                        core, edges, test, device="cpu")

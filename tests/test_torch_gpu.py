@@ -1310,3 +1310,90 @@ def _leaves(tree):
             yield from _leaves(tree[k])
     else:
         yield tree
+
+
+@pytest.mark.parametrize("scenario", ["async_heavy_tail", "hier_uniform"])
+def test_async_and_hierarchical_runs_launch_the_kd_pair_per_step(cuda,
+                                                                 scenario):
+    """The quickstart's MLP federation (bkd, 2 core rounds at R = 2) under
+    an emergent-staleness timeline and a two-level fleet, on the card and
+    on the CPU from one initial state: the kd pair launches once a Phase-2
+    step of every distill round the plan stream holds (region rounds
+    included), ``history`` has one entry a core round, and the test
+    accuracy agrees within 0.02."""
+    import dataclasses
+
+    from repro_torch.core.fl import FederatedKD
+    from repro_torch.core.scheduler import build_scenario
+    from repro_torch.examples import quickstart
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+
+    torch.backends.cudnn.allow_tf32 = False
+    adapter, core, edges, test = quickstart.setup()
+    init = params_to_numpy(adapter.init(torch.Generator().manual_seed(0),
+                                        "cpu"))
+    adapter = dataclasses.replace(
+        adapter, init=lambda gen, device: params_from_numpy(init, device))
+    cfg = dataclasses.replace(quickstart.config("bkd", rounds=2),
+                              num_edges=len(edges), aggregation_r=2)
+    plans = build_scenario(scenario, len(edges), aggregation_r=2).plans(2)
+    steps = len(plans) * cfg.kd_epochs * (len(core) // cfg.batch_size)
+    acc = {}
+    for device in ("cuda", "cpu"):
+        kd.kd_stats_fwd.launches = kd.kd_grad_bwd.launches = 0
+        fl = FederatedKD(adapter, cfg, core, edges, test, device=device,
+                         scheduler=build_scenario(scenario, len(edges),
+                                                  aggregation_r=2))
+        _, hist = fl.run(0, log=None)
+        launches = (kd.kd_stats_fwd.launches, kd.kd_grad_bwd.launches)
+        assert launches == ((steps, steps) if device == "cuda" else (0, 0))
+        assert len(hist) == 2
+        acc[device] = [h["test_acc"] for h in hist]
+    assert max(abs(a - b) for a, b in zip(acc["cuda"], acc["cpu"])) <= 0.02
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_recurrent_training_on_card_takes_the_plain_scans(cuda, arch):
+    """A SMOKE pretrain step on the card (f32, TF32 off) launches neither
+    scan kernel and agrees with the CPU step: loss within 1e-5, each
+    gradient leaf within 1e-4 of its largest CPU gradient.  The kernels
+    themselves are forward-only: ``use_kernel=True`` under autograd on a
+    CUDA tensor raises."""
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels import rglru as rglru_mod
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.launch import steps as St
+    from repro_torch.models.transformer import _recurrent
+    from repro_torch.optim import Optimizer
+    from repro_torch.tree import tree_map
+
+    grad_opt = Optimizer(init=lambda p: {},
+                         update=lambda g, s, p, step, lr=None: (g, s))
+    cfg = registry.get_smoke_config(arch)
+    weights = params_to_numpy(Transformer.init(cfg, 4, device="cpu"))
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size - 1,
+                                             size=(2, 41))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+        ssd_mod.ssd.launches = rglru_mod.rglru.launches = 0
+        step = St.make_pretrain_step(cfg, grad_opt, loss_chunk=20)
+        p, _, m = step(params_from_numpy(weights, dev), {}, batch, 0)
+        out[dev] = (list(_leaves(params_to_numpy(p))), float(m["loss"]))
+        assert ssd_mod.ssd.launches == rglru_mod.rglru.launches == 0
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5
+    for got, want in zip(out["cuda"][0], out["cpu"][0]):
+        assert np.abs(got - want).max() <= 1e-4 * max(np.abs(want).max(),
+                                                       1e-30)
+    kind = next(k for k in cfg.block_pattern if k in ("ssd", "rglru"))
+    lib, sub = _recurrent(cfg, kind)
+    block = Transformer.init(cfg, 4, device="cuda")["blocks"]
+    layer = tree_map(lambda v: v[0].detach().requires_grad_(),
+                     block[f"b{cfg.block_pattern.index(kind)}"]["mixer"])
+    x = torch.randn(2, 16, cfg.d_model, device="cuda")
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        lib.forward(layer, sub, x, use_kernel=True)
+    lib.forward(layer, sub, x, use_kernel=False).sum().backward()
+    with torch.no_grad():
+        lib.forward(layer, sub, x, use_kernel=True)

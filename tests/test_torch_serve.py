@@ -206,7 +206,7 @@ def test_cuda_entry_points_raise_without_a_card():
 def test_unported_paths_raise():
     """What still raises: the engines' carry/restore (slice 6, checkpoints),
     the CLI's --legacy loop (slice 9), padded prefill on recurrent
-    sub-blocks (as in the JAX package) and the unported archs."""
+    sub-blocks and an encoder-only engine (both as in the JAX package)."""
     cfg = registry.get_smoke_config("granite-3-2b")
     params = Transformer.init(cfg, 0, device="cpu")
     for paged in (False, True):
@@ -221,8 +221,12 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="recurrent"):
         Transformer.prefill(hybrid, params, {"tokens": torch.zeros(
             (1, 4), dtype=torch.int32)}, 16, lengths=torch.ones(1))
-    with pytest.raises(KeyError, match="not ported.*slice 4"):
-        registry.get_config("hubert-xlarge")
+    # hubert-xlarge is encoder-only: it loads, and serving it is refused
+    # as the JAX package refuses it.
+    hubert = registry.get_smoke_config("hubert-xlarge")
+    with pytest.raises(ValueError, match="encoder-only arch has no decode"):
+        ServeEngine(hubert, Transformer.init(hubert, 0, device="cpu"),
+                    slots=1, max_len=16, device="cpu")
     for arch in ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b"):  # MoE: ported
         assert registry.get_config(arch).mlp == "moe"
 

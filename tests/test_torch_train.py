@@ -29,6 +29,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import registry as jregistry  # noqa: E402
 from repro.core import methods as jmethods  # noqa: E402
+from repro.core import scheduler as jscheduler  # noqa: E402
 from repro.launch import steps as JSt  # noqa: E402
 from repro.launch.mesh import make_test_mesh, mesh_context  # noqa: E402
 from repro.models.transformer import Transformer as JTransformer  # noqa: E402
@@ -401,13 +402,56 @@ def test_train_refuses_what_the_reference_refuses(argv, text, capsys):
     assert text in capsys.readouterr().err
 
 
+_NUMBER = re.compile(r"(loss|kd|domain)[=:] ?(-?\d+\.\d+)")
+
+
 @pytest.mark.parametrize("argv", [
     ["--sim", "async:uniform"], ["--sim", "fleet:heavy_tail"],
     ["--scenario", "async_uniform"], ["--scenario", "async_dropout"],
     ["--scenario", "hier_uniform"], ["--scenario", "fleet_uniform"]])
-def test_train_async_fleet_and_hierarchical_name_slice_7(argv):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        train.main(ARGV + argv)
+def test_train_async_fleet_and_hierarchical_name_slice_7(smoke, argv,
+                                                         monkeypatch, capsys):
+    """The slice-7 plan sources of the LLM trainer against the JAX one's,
+    from one carried granite SMOKE state over 3 rounds of 3 edges: the same
+    simulator line, the same edge, staleness and event time each round,
+    and every printed loss within 2e-4 (four printed decimals).  The
+    two-level hier_* streams are refused with the reference's text."""
+    from repro.launch import train as jtrain
+    runs = ["--rounds", "3", "--edges", "3", "--steps-per-phase", "2",
+            "--batch", "2", "--seq", "8"] + argv
+    if argv[-1] in jscheduler.HIER_SCENARIOS:
+        for main, extra in ((jtrain.main, []),
+                            (train.main, ["--device", "cpu"])):
+            with pytest.raises(SystemExit):
+                main(runs + extra)
+            err = capsys.readouterr().err
+            assert ("--scenario hier_uniform emits a two-level region/core "
+                    "plan stream; drive it through the CPU orchestrator "
+                    "instead") in err
+        return
+    mesh, _, _, weights = smoke["granite-3-2b"]
+    monkeypatch.setattr(JTransformer, "init", staticmethod(
+        lambda cfg, key: (jax.tree.map(jnp.asarray, weights), None)))
+    monkeypatch.setattr(Transformer, "init", staticmethod(
+        lambda cfg, seed=0, *, device="cuda": params_from_numpy(weights,
+                                                                device)))
+    capsys.readouterr()
+    jtrain.main(runs)
+    want = capsys.readouterr().out
+    train.main(runs + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    rounds = re.compile(r"\[round \d+\] edge \d+ trained( stale=\S+)?"
+                        r"( t=\S+)?,")
+    assert rounds.findall(got) == rounds.findall(want)
+    assert len(rounds.findall(got)) == 3
+    sim = [l for l in want.splitlines() if "simulator:" in l]
+    assert sim == [l for l in got.splitlines() if "simulator:" in l]
+    assert len(sim) == (0 if argv[-1] == "fleet_uniform" else 1)
+    mine = [(k, float(v)) for k, v in _NUMBER.findall(got)]
+    theirs = [(k, float(v)) for k, v in _NUMBER.findall(want)]
+    assert [k for k, _ in mine] == [k for k, _ in theirs] and len(mine) >= 8
+    for (key, a), (_, b) in zip(mine, theirs):
+        assert abs(a - b) <= 2e-4, (key, a, b, got, want)
 
 
 def test_train_cli_runs_a_moe_arch_on_cpu(capsys):
