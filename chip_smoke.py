@@ -194,13 +194,35 @@ together; each prints its kernels' registers and spills), then:
               and mamba2-370m card vs CPU, loss within 1e-5 and gradients
               within 1e-4 (recurrentgemma's full width does not fit one card
               with AdamW: printed);
-35. kernels bench the port's ``kernels_bench`` on the card (the kd pair
+35. live      slice 6's main path at full width: Granite-3-2B (bf16)
+              through ``LiveSystem`` with the live bench's settings (2
+              edges, the async simulator's uniform stream, bkd, 2 rounds,
+              quantum 2, a diurnal stream of 24 requests on 2 dense slots):
+              the memory reckoning printed before the run (full depth under
+              70 GB, else depth cut), serve-only against co-scheduled tok/s,
+              the swap ticks and NLLs, peak memory, the phase seconds; the
+              kd pair once a Phase-2 step of the plan stream, ``swa_decode``
+              layers x decode ticks;
+36. carry     engine carry/restore at full width (Granite-3-2B, bf16, phase
+              3's stream and settings), dense and paged: saved mid-stream,
+              restored into a fresh engine and resumed, tokens, clock and
+              the allocator's books equal the uninterrupted run's;
+37. live ckpt the fused live checkpoint, SMOKE (the JAX package's test
+              setting) on the card: saved mid-round and mid-epoch, restored
+              and resumed bit-identical to the uninterrupted run; that run
+              card vs CPU (TF32 off): tokens equal, state within 1e-4;
+38. legacy    ``serve_bench --smoke`` on the card (its paged gates must
+              hold; its exit code and speedup printed), then Granite-3-2B at
+              full width: the engine against the legacy loop on phase 3's
+              stream, tok/s and ``swa_decode`` launches for both;
+39. kernels bench the port's ``kernels_bench`` on the card (the kd pair
               against the plain loss's autograd at 256 x 8,192, the
               gradient within 1e-5 of its largest entry; ``rglru`` and
               ``ssd`` against their plain versions);
-36. kernels   prints one JSON line per the port's kernel table (eight
-              kernels; the kd pair's launches include phase 29's, the quant
-              pair's phase 32's).
+40. kernels   prints one JSON line per the port's kernel table (eight
+              kernels; the kd pair's launches include phases 29 and 35's,
+              the quant pair's phase 32's, ``swa_decode``'s phases 35 and
+              38's legacy loop).
 
 Each phase's seconds are printed (``[time]``).
 
@@ -233,14 +255,17 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.benchmarks import (async_bench, fig4_main,  # noqa: E402
                                     fig5_forget, fig7_aggregation,
                                     fig9_straggler, kernels_bench,
-                                    phase2_bench, transport_bench)
+                                    phase2_bench, serve_bench,
+                                    transport_bench)
 from repro_torch.benchmarks import run as fig_run  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.configs.resnet32_cifar import RESNET32  # noqa: E402
+from repro_torch.checkpoint import save_tree  # noqa: E402
 from repro_torch.configs.shapes import SHAPES  # noqa: E402
 from repro_torch.core.distill_engine import DistillEngine  # noqa: E402
 from repro_torch.core.fl import FederatedKD, FLConfig, resnet_adapter  # noqa: E402
 from repro_torch.core.scheduler import HIER_SCENARIOS, build_scenario  # noqa: E402
+from repro_torch.core.simulator import EventDrivenSimulator  # noqa: E402
 from repro_torch.data import (Dataset, dirichlet_partition,  # noqa: E402
                               make_cifar_like, make_token_stream)
 from repro_torch.examples import quickstart  # noqa: E402
@@ -257,10 +282,13 @@ from repro_torch.kernels.ref import paged_decode_ref  # noqa: E402
 from repro_torch.launch import steps as St  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import summarize  # noqa: E402
+from repro_torch.live import (LiveSystem, LiveTrainer, lm_adapter,  # noqa: E402
+                              lm_fl_data, nll_on)
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.nn import attention  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
 from repro_torch.serve import Request, ServeEngine, build_stream  # noqa: E402
+from repro_torch.serve import legacy  # noqa: E402
 from repro_torch.serve.paged import pages_for  # noqa: E402
 from repro_torch.transport import parse_codec  # noqa: E402
 from repro_torch.transport.method import PAYLOAD_KEY  # noqa: E402
@@ -2947,6 +2975,441 @@ def phase_recurrent_train(serve_ssd_launches, rg_params):
           f"the card's {torch.cuda.get_device_properties(0).total_memory} B")
 
 
+# -- slice 6: the live co-scheduled system and checkpoints; the legacy loop ---
+
+#: The most the live co-run may reckon to hold on the card; deeper models
+#: are cut, never narrowed.
+LIVE_BUDGET = 70e9
+LIVE_ROUNDS, LIVE_REQUESTS, LIVE_QUANTUM = 2, 24, 2
+
+
+def _live_reckoning(cfg):
+    """(parameter bytes, reckoned peak bytes) of a live co-run by count:
+    at a Phase-2 step the card holds the trainer's state, ``w0``, the
+    stepper's state, bkd's frozen copy of it, the one-teacher stack, the
+    engine's copy, the step's gradients and its new parameters (eight
+    copies in the parameter dtype) and the old and new f32 momentum."""
+    layer, fixed = _param_bytes(cfg)
+    p = fixed + cfg.num_layers * layer
+    n = p // (torch.finfo(cfg.pdt).bits // 8)
+    return p, 8 * p + 2 * 4 * n
+
+
+def _live_depth(cfg):
+    """``cfg`` at full width, at full depth when its reckoned peak fits
+    LIVE_BUDGET, else cut to the layers that fit; prints the reckoning."""
+    p, peak = _live_reckoning(cfg)
+    print(f"[live] reckoning for {cfg.name} at {cfg.num_layers} layers: "
+          f"{p / 1e9:.2f} GB of {cfg.param_dtype} parameters; a Phase-2 step "
+          f"holds 8 copies of them (state, w0, stepper state, bkd's frozen "
+          f"copy, the teacher stack, the engine's copy, gradients, new "
+          f"parameters) and 2 f32 momenta (old and new): {peak / 1e9:.1f} GB "
+          f"against a budget of {LIVE_BUDGET / 1e9:.0f} GB")
+    if peak <= LIVE_BUDGET:
+        print(f"[live] {cfg.name}: full depth, {cfg.num_layers} layers")
+        return cfg
+    layer, fixed = _param_bytes(cfg)
+    per = peak / p
+    fit = int((LIVE_BUDGET / per - fixed) // layer)
+    check(fit >= 1, f"live: not one layer of {cfg.name} fits")
+    print(f"[live] {cfg.name}: depth cut to {fit} of {cfg.num_layers} layers")
+    return dataclasses.replace(cfg, num_layers=fit)
+
+
+def _phase2_steps(trainer):
+    """Phase-2 optimizer steps of the trainer's plan stream: kd_epochs x
+    (core windows // batch) a distilling round."""
+    cfg, n = trainer.cfg, len(trainer.fl.core_ds)
+    per_epoch = max(n // min(cfg.batch_size, n), 1)
+    return sum(cfg.kd_epochs * per_epoch for p in trainer.plans
+               if not p.withdraw)
+
+
+def phase_live():
+    """Slice 6's main path at full width: Granite-3-2B (bf16) through
+    ``LiveSystem`` with the live bench's settings (``lm_fl_data`` 2 edges x
+    8-token windows of 256 sequences; ``EventDrivenSimulator(2,
+    'uniform')``; bkd, 2 rounds, 2 KD epochs, batch 8; quantum 2; one
+    diurnal stream of 24 requests on a dense engine of 2 slots, ``max_len``
+    32).  Prints serve-only tok/s (cold, warm) against co-scheduled tok/s,
+    the swap ticks, the core NLL at each swap, peak memory against the
+    reckoning, and the phase seconds.  The kd pair must launch once a
+    Phase-2 step of the plan stream, ``swa_decode`` layers x decode ticks.
+    Returns (kd_stats_fwd, kd_grad_bwd, swa_decode) launches."""
+    torch.cuda.empty_cache()
+    cfg = _live_depth(registry.get_config("granite-3-2b"))
+    core, edges, test, silos = lm_fl_data(cfg, num_edges=2, seq_len=8,
+                                          n_seqs=256, seed=0)
+    flcfg = FLConfig(num_edges=2, rounds=LIVE_ROUNDS, method="bkd",
+                     core_epochs=1, edge_epochs=1, kd_epochs=2, batch_size=8,
+                     seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    fl = FederatedKD(lm_adapter(cfg), flcfg, core, edges, test,
+                     scheduler=EventDrivenSimulator(2, "uniform", seed=0),
+                     device="cuda")
+    times = {"phase0": 0.0, "phase1": 0.0, "train": 0.0, "nll": 0.0}
+    _timed(fl, "pretrain_core", times, "phase0")
+    _timed(fl, "train_round_edges", times, "phase1")
+    trainer = LiveTrainer(fl, 0, log=print)
+    stream = lambda: build_stream(  # noqa: E731
+        "diurnal", LIVE_REQUESTS, vocab=cfg.vocab_size, seed=0,
+        prompt_max=10, out_max=4)
+    nll0 = nll_on(cfg, trainer.state, silos["core"])
+    baseline = ServeEngine(cfg, trainer.state, slots=2, max_len=32,
+                           device="cuda")
+    serve_only = {}
+    for key in ("cold", "warm"):
+        baseline.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finished = baseline.run(stream())
+        torch.cuda.synchronize()
+        serve_only[key] = summarize(finished, time.perf_counter() - t0)
+    del baseline
+
+    engine = ServeEngine(cfg, trainer.state, slots=2, max_len=32,
+                         device="cuda")
+    horizon = max(r.arrival for r in stream()) + 2 * LIVE_REQUESTS
+    t_last = max(p.time for p in trainer.plans)
+
+    def on_swap(system, rec):
+        t0 = time.perf_counter()
+        rec["eval_nll_core"] = nll_on(cfg, system.trainer.state,
+                                      silos["core"])
+        times["nll"] += time.perf_counter() - t0
+
+    system = LiveSystem(trainer, engine, quantum=LIVE_QUANTUM,
+                        ticks_per_time=0.6 * horizon / t_last,
+                        on_swap=on_swap)
+    _timed(trainer, "step", times, "train")
+    phase1_before = times["phase1"]
+    for c in (*KD_COUNTERS.values(), swa_mod.swa_decode,
+              pd_mod.paged_decode):
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finished = system.run(stream())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in KD_COUNTERS.items()}
+    swa = swa_mod.swa_decode.launches
+    co = summarize(finished, wall)
+    steps = _phase2_steps(trainer)
+    phase1 = times["phase1"] - phase1_before
+    train_s = times["train"] - phase1
+    serve_s = wall - times["train"] - times["nll"]
+    for key, st in serve_only.items():
+        print(f"[live] serve-only ({key}) on the pretrained core: "
+              f"{st['tokens']} tokens in {st['seconds']}s = "
+              f"{st['tok_per_sec']} tok/s; ITL p50 {st['itl_p50_ms']} ms")
+    print(f"[live] co-scheduled: {co['requests']}/{LIVE_REQUESTS} requests, "
+          f"{co['tokens']} tokens in {co['seconds']}s = {co['tok_per_sec']} "
+          f"tok/s (serve-only warm {serve_only['warm']['tok_per_sec']}); "
+          f"TTFT p50/p99 {co['ttft_p50_ms']}/{co['ttft_p99_ms']} ms, ITL "
+          f"p50/p99 {co['itl_p50_ms']}/{co['itl_p99_ms']} ms; {engine.ticks} "
+          f"ticks ({engine.decode_ticks} decode ticks)")
+    print(f"[live] seconds: phase 0 {times['phase0']:.2f}, phase 1 "
+          f"{phase1:.2f} (co-run) / {times['phase1']:.2f} (all), phase 2 "
+          f"with the rounds' metrics passes {train_s:.2f} = "
+          f"{steps / train_s:.2f} Phase-2 steps/s, serving {serve_s:.2f}, "
+          f"swap NLLs {times['nll']:.2f}; co-run wall {wall:.2f}")
+    print(f"[live] pretrained core NLL {nll0:.4f}; swaps at ticks "
+          f"{engine.swap_log}: " + "; ".join(
+              f"round {r['round']} tick {r['tick']} swap {r['swap']} NLL "
+              f"{r['eval_nll_core']:.4f}" for r in system.swap_records))
+    _, reckoned = _live_reckoning(cfg)
+    print(f"[live] max_memory_allocated {torch.cuda.max_memory_allocated()} "
+          f"B (reckoned {reckoned:.4g} B) of "
+          f"{torch.cuda.get_device_properties(0).total_memory} B; launches "
+          f"{launches} for {steps} Phase-2 steps; swa_decode {swa} over "
+          f"{engine.decode_ticks} decode ticks x {cfg.num_layers} layers")
+    committed = [r for r in system.swap_records if r["swap"] is not None]
+    check(trainer.rounds_done == LIVE_ROUNDS,
+          f"live: {trainer.rounds_done} of {LIVE_ROUNDS} rounds")
+    check(committed and all(math.isfinite(r["eval_nll_core"])
+                            for r in committed),
+          f"live: swaps {system.swap_records}")
+    check(len(finished) == LIVE_REQUESTS, f"live: {len(finished)} served")
+    want = {"kd_stats_fwd": steps, "kd_grad_bwd": steps,
+            "kd_quant_stats_fwd": 0, "kd_quant_grad_bwd": 0}
+    check(launches == want and steps > 0,
+          f"live: kd launches {launches}, want {want}")
+    check(swa == cfg.num_layers * engine.decode_ticks > 0,
+          f"live: swa_decode launched {swa} times, want {cfg.num_layers} x "
+          f"{engine.decode_ticks}")
+    check(pd_mod.paged_decode.launches == 0,
+          "live: the dense engine launched paged_decode")
+    del system, engine, trainer, fl
+    torch.cuda.empty_cache()
+    return launches["kd_stats_fwd"], launches["kd_grad_bwd"], swa
+
+
+def _phase3_stream(cfg, n=8):
+    return build_stream("poisson", n, vocab=cfg.vocab_size, seed=0,
+                        prompt_max=192, out_max=32, shared_prefix=32)
+
+
+def _engine_carry_restore(cfg, params, label, tmp, **kw):
+    """Phase 3's stream uninterrupted, then saved mid-stream (live slots,
+    queued requests, three decode ticks in), restored into a fresh engine
+    and resumed: tokens, clock and (paged) the allocator books and host
+    page table must equal the uninterrupted run's."""
+    mk = lambda: ServeEngine(cfg, params, slots=SLOTS,  # noqa: E731
+                             max_len=MAX_LEN, device="cuda", **kw)
+    eng = mk()
+    done = eng.run(_phase3_stream(cfg))
+    want = ({r.rid: r.out for r in done}, eng.ticks)
+    snap = (eng._alloc.snapshot(), eng._pt_host.copy()) if eng.paged else None
+    del eng
+    eng = mk()
+    eng.begin(_phase3_stream(cfg))
+    while not (any(r is not None for r in eng._host_active) and eng._queue
+               and eng.decode_ticks >= 3):
+        eng.tick()
+        check(eng.pending(), f"{label}: no save point")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, meta = eng.carry()
+    carry_bytes = sum(t.numel() * t.element_size() for t in _leaves(tree)
+                      if isinstance(t, torch.Tensor))
+    path = str(Path(tmp) / f"{label.replace(' ', '_')}.npz")
+    save_tree(path, {"engine": tree}, meta)
+    save_s = time.perf_counter() - t0
+    saved_at, live = eng.ticks, sum(r is not None for r in eng._host_active)
+    queued = len(eng._queue)
+    del eng, tree
+    eng = mk()
+    t0 = time.perf_counter()
+    eng.restore(path, meta, _phase3_stream(cfg))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    while eng.pending():
+        eng.tick()
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    got = ({r.rid: r.out for r in eng._finished}, eng.ticks)
+    print(f"[carry] {label}: saved at tick {saved_at} ({live} live slots, "
+          f"{queued} queued); carry {carry_bytes} B on the card, npz "
+          f"{Path(path).stat().st_size} B, saved in {save_s:.2f}s, restored "
+          f"in {restore_s:.2f}s, resumed {eng.ticks - saved_at} ticks in "
+          f"{resume_s:.2f}s; tokens equal {got[0] == want[0]}, clock "
+          f"{got[1]} / {want[1]}")
+    check(got == want, f"{label}: resumed run differs from the "
+          "uninterrupted one")
+    if snap is not None:
+        check(eng._alloc.snapshot() == snap[0]
+              and np.array_equal(eng._pt_host, snap[1]),
+              f"{label}: allocator books or page table differ")
+    Path(path).unlink()
+
+
+def phase_engine_carry():
+    """Engine carry/restore at full width: Granite-3-2B in bf16 on phase
+    3's stream and settings, dense (``swa_decode``) and paged
+    (``paged_decode``)."""
+    import tempfile
+    cfg = registry.get_config("granite-3-2b")
+    params = Transformer.init(cfg, 0, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        _engine_carry_restore(cfg, params, "dense", tmp)
+        _engine_carry_restore(cfg, params, "paged", tmp, paged=True,
+                              page_size=PAGE)
+    del params
+    torch.cuda.empty_cache()
+
+
+LIVE_SMOKE_TOL = 1e-4
+
+
+def _live_smoke_system(weights, device):
+    """The JAX package's live test setting (``tests/test_live.py::
+    _lm_setup``): Granite SMOKE with three attention layers, f32, 2 bkd
+    rounds, quantum 1, 2 slots, ``max_len`` 32; every system starts from
+    the same weights."""
+    cfg = dataclasses.replace(registry.get_smoke_config("granite-3-2b"),
+                              block_pattern=("attn",) * 3)
+    core, edges, test, _ = lm_fl_data(cfg, num_edges=2, seq_len=8,
+                                      n_seqs=96, seed=0)
+    flcfg = FLConfig(num_edges=2, rounds=2, method="bkd", core_epochs=1,
+                     edge_epochs=1, kd_epochs=2, batch_size=8, seed=0)
+    adapter = dataclasses.replace(
+        lm_adapter(cfg),
+        init=lambda gen, dev: params_from_numpy(weights, dev))
+    fl = FederatedKD(adapter, flcfg, core, edges, test, device=device)
+    trainer = LiveTrainer(fl, 0, log=None)
+    engine = ServeEngine(cfg, trainer.state, slots=2, max_len=32,
+                         device=device)
+    return cfg, LiveSystem(trainer, engine, quantum=1)
+
+
+def _live_smoke_result(system, finished):
+    return {"tokens": {r.rid: list(r.out) for r in finished},
+            "ticks": system.engine.ticks,
+            "swap_log": list(system.engine.swap_log),
+            "swap_records": [dict(r) for r in system.swap_records],
+            "history": [h.as_dict() for h in system.trainer.fl.history],
+            "uplink_log": list(system.trainer.fl.distill_engine.uplink_log)}
+
+
+def phase_live_checkpoint():
+    """The fused live checkpoint on the card, SMOKE (the JAX package's
+    test setting): saved mid-round and mid-epoch (``st.i > 0``,
+    ``st._idx`` set) and mid-stream, restored into a fresh system and
+    resumed, the final state must be bit-identical to the uninterrupted
+    run's, and so must the history, every served token, the ticks, the
+    swap log and records and the uplink log.  Then the uninterrupted run
+    card vs CPU (TF32 off): greedy tokens equal, final state within
+    LIVE_SMOKE_TOL."""
+    import tempfile
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg0 = dataclasses.replace(registry.get_smoke_config("granite-3-2b"),
+                               block_pattern=("attn",) * 3)
+    weights = params_to_numpy(Transformer.init(cfg0, 0, device="cpu"))
+    stream = lambda: build_stream("poisson", 5, vocab=cfg0.vocab_size,  # noqa: E731
+                                  seed=3, prompt_max=10, out_max=4)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        _, system = _live_smoke_system(weights, device)
+        finished = system.run(stream())
+        runs[device] = (_live_smoke_result(system, finished),
+                        params_to_numpy(system.trainer.state))
+    _, sys_b = _live_smoke_system(weights, "cuda")
+    eng, tr = sys_b.engine, sys_b.trainer
+    eng.begin(stream())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "live.npz")
+        for _ in range(1000):
+            if eng.pending():
+                eng.tick()
+            if tr.pending():
+                sys_b._train_quantum()
+            st = tr._stepper
+            if (tr.mid_round and st is not None and st.i > 0
+                    and st._idx is not None):
+                sys_b.save(path)
+                break
+        check(Path(path).exists(), "live checkpoint: no mid-epoch save point")
+        saved = (tr.cursor, st.i, st.epoch, st.pos, eng.ticks)
+        _, sys_c = _live_smoke_system(weights, "cuda")
+        reqs = stream()
+        sys_c.restore(path, reqs)
+        finished = sys_c.run(reqs, resume=True)
+    resumed = (_live_smoke_result(sys_c, finished),
+               params_to_numpy(sys_c.trainer.state))
+    want, want_state = runs["cuda"]
+    got, got_state = resumed
+    same_state = all(np.array_equal(a, b) for a, b in
+                     zip(_leaves(got_state), _leaves(want_state)))
+    print(f"[live ckpt] SMOKE on the card: saved at round {saved[0]}, step "
+          f"{saved[1]} (epoch {saved[2]}, row {saved[3]}), tick {saved[4]}; "
+          f"resumed: state bit-identical {same_state}, " + ", ".join(
+              f"{k} equal {got[k] == want[k]}" for k in got))
+    check(same_state, "live ckpt: resumed state differs from uninterrupted")
+    check(got == want, "live ckpt: resumed run differs from uninterrupted")
+    cpu, cpu_state = runs["cpu"]
+    err = max(float(np.max(np.abs(a - b))) for a, b in
+              zip(_leaves(want_state), _leaves(cpu_state)))
+    print(f"[live ckpt] card vs CPU, uninterrupted: tokens equal "
+          f"{want['tokens'] == cpu['tokens']}, swap ticks {want['swap_log']} "
+          f"/ {cpu['swap_log']}, final state max abs diff {err:.3g} (limit "
+          f"{LIVE_SMOKE_TOL})")
+    check(want["tokens"] == cpu["tokens"] and want["swap_log"] ==
+          cpu["swap_log"], "live ckpt: card and CPU serve different tokens")
+    check(err <= LIVE_SMOKE_TOL, f"live ckpt: card vs CPU state {err}")
+
+
+def phase_legacy():
+    """``serve_bench --smoke`` on the card (its JSON summary, the paged
+    parity and residency gates, which must hold; its exit code and speedup,
+    printed, not required: the speedup gate measures JAX's retracing), then
+    Granite-3-2B at full width in bf16: the engine (after a warm-up run)
+    and the legacy loop on phase 3's stream, tok/s for both and
+    ``swa_decode``'s launches (layers x decode calls each).  Returns the
+    legacy loop's ``swa_decode`` launches."""
+    import tempfile
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "serve.json"
+        with contextlib.redirect_stdout(buf):
+            rc = serve_bench.main(["--smoke", "--device", "cuda",
+                                   "--out", str(out)])
+        report = json.loads(out.read_text())
+    paged = report["paged"]
+    print(f"[legacy] serve_bench --smoke report: {json.dumps(report)}")
+    print(f"[legacy] serve_bench --smoke: exit {rc}; legacy "
+          f"{report['legacy']['tok_per_sec']} tok/s, engine "
+          f"{report['engine']['tok_per_sec']} tok/s, speedup "
+          f"{report['speedup_tok_s']} (the reference's gate 1.5, not "
+          f"required); prefill shapes {report['prefill_compiles']}; paged "
+          f"tokens match {paged['tokens_match_all_streams']}, worst "
+          f"residency cut {paged['worst_reduction_x']}x; streams " + ", ".join(
+              f"{k} {v['tok_per_sec']}" for k, v in report["streams"].items())
+          + f"; prefix {paged['prefix']}")
+    check(paged["tokens_match_all_streams"]
+          and paged["worst_reduction_x"] >= 4.0,
+          f"legacy: serve_bench paged gates {paged}")
+    check(report["prefill_compiles"]["count"]
+          <= report["prefill_compiles"]["bound"],
+          f"legacy: prefill shapes {report['prefill_compiles']}")
+
+    cfg = registry.get_config("granite-3-2b")
+    params = Transformer.init(cfg, 0, device="cuda")
+    engine = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                         device="cuda")
+    engine.run(_phase3_stream(cfg, 2))              # warm-up
+    engine.reset()
+    swa_mod.swa_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finished = engine.run(_phase3_stream(cfg))
+    torch.cuda.synchronize()
+    eng_stats = summarize(finished, time.perf_counter() - t0)
+    eng_swa = swa_mod.swa_decode.launches
+    check(eng_swa == cfg.num_layers * engine.decode_ticks > 0,
+          f"legacy: engine swa_decode {eng_swa}, want {cfg.num_layers} x "
+          f"{engine.decode_ticks}")
+    del engine
+    calls = [0]
+    real = legacy.legacy_serve_step
+
+    def counted(c):
+        step = real(c)
+
+        def call(*a):
+            calls[0] += 1
+            return step(*a)
+        return call
+
+    legacy.legacy_serve_step = counted
+    swa_mod.swa_decode.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finished = legacy.simulate(cfg, params, _phase3_stream(cfg), SLOTS,
+                                   MAX_LEN, log=lambda *a: None)
+        torch.cuda.synchronize()
+        leg_stats = summarize(finished, time.perf_counter() - t0)
+    finally:
+        legacy.legacy_serve_step = real
+    leg_swa = swa_mod.swa_decode.launches
+    print(f"[legacy] {cfg.name} full width, bf16, phase 3's stream: engine "
+          f"{eng_stats['tokens']} tokens in {eng_stats['seconds']}s = "
+          f"{eng_stats['tok_per_sec']} tok/s ({eng_swa} swa_decode launches); "
+          f"legacy loop {leg_stats['tokens']} tokens in "
+          f"{leg_stats['seconds']}s = {leg_stats['tok_per_sec']} tok/s "
+          f"({leg_swa} swa_decode launches over {calls[0]} decode calls); "
+          f"legacy/engine tok/s "
+          f"{leg_stats['tok_per_sec'] / eng_stats['tok_per_sec']:.3f}")
+    check(len(finished) == 8, f"legacy: {len(finished)} of 8 served")
+    check(leg_swa == cfg.num_layers * calls[0] > 0,
+          f"legacy: swa_decode {leg_swa}, want {cfg.num_layers} x {calls[0]}")
+    del params
+    torch.cuda.empty_cache()
+    return leg_swa
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3014,6 +3477,13 @@ def main():
         e["launches"] += n
     timed(phase_hubert)
     timed(phase_recurrent_train, ssd_entry["launches"], rg_params)
+    kd_live, kdg_live, swa_live = timed(phase_live)
+    kd_entries[0]["launches"] += kd_live
+    kd_entries[1]["launches"] += kdg_live
+    swa_entry["launches"] += swa_live
+    timed(phase_engine_carry)
+    timed(phase_live_checkpoint)
+    swa_entry["launches"] += timed(phase_legacy)
     timed(phase_kernels_bench)
     print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries
                       + [swa_entry, ssd_entry, rglru_entry]}))

@@ -8,6 +8,8 @@ prefix-cache counters.
         --stream poisson --requests 8 --slots 4 [--ring | --paged] [--full] \
         [--device cpu]
 
+``--legacy`` runs the frozen pre-engine loop instead
+(``repro_torch.serve.legacy``), the comparison baseline.
 ``--arch mamba2-370m`` and ``--arch recurrentgemma-9b`` serve the recurrent
 archs on the dense engine with exact-length admission; ``--paged`` on them
 raises, as the JAX CLI does (recurrent state has no pages).  Weights are
@@ -26,6 +28,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import registry
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve import STREAMS, ServeEngine, build_stream
+from repro_torch.serve import legacy as legacy_mod
 
 
 def _percentile_ms(vals, q):
@@ -79,16 +82,12 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--legacy", action="store_true",
-                    help="the frozen pre-refactor loop (not ported yet)")
+                    help="run the frozen pre-engine loop (baseline)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
     args = ap.parse_args(argv)
 
-    if args.legacy:
-        raise NotImplementedError(
-            "--legacy (serve/legacy.py) is not ported yet (ROADMAP.md queue "
-            "1, slice 9: the legacy loop)")
     device = resolve_device(args.device)
     cfg = (registry.get_config(args.arch) if args.full
            else registry.get_smoke_config(args.arch))
@@ -106,22 +105,29 @@ def main(argv=None):
                                        - args.shared_prefix),
                         out_max=args.out_max,
                         shared_prefix=args.shared_prefix)
-    engine = ServeEngine(cfg, params, slots=args.slots, max_len=args.max_len,
-                         sample=args.sample, temperature=args.temperature,
-                         top_k=args.top_k if args.sample == "topk" else 0,
-                         seed=args.seed, paged=args.paged,
-                         page_size=args.page_size, device=device)
+    if not args.legacy:
+        engine = ServeEngine(cfg, params, slots=args.slots,
+                             max_len=args.max_len, sample=args.sample,
+                             temperature=args.temperature,
+                             top_k=args.top_k if args.sample == "topk" else 0,
+                             seed=args.seed, paged=args.paged,
+                             page_size=args.page_size, device=device)
     t0 = time.perf_counter()
-    finished = engine.run(reqs, log=print)
+    if args.legacy:
+        finished = legacy_mod.simulate(cfg, params, reqs, args.slots,
+                                       args.max_len)
+    else:
+        finished = engine.run(reqs, log=print)
     stats = summarize(finished, time.perf_counter() - t0)
     cache = "paged" if args.paged else ("ring" if args.ring else "full")
+    mode = "legacy" if args.legacy else f"engine[{args.sample}, {cache} cache]"
     print(f"served {stats['requests']}/{args.requests} requests "
-          f"({args.stream} stream, engine[{args.sample}, {cache} cache] on "
+          f"({args.stream} stream, {mode} on "
           f"{device}): {stats['tokens']} tokens in {stats['seconds']}s = "
           f"{stats['tok_per_sec']} tok/s; "
           f"TTFT p50/p99 {stats['ttft_p50_ms']}/{stats['ttft_p99_ms']} ms; "
           f"ITL p50/p99 {stats['itl_p50_ms']}/{stats['itl_p99_ms']} ms")
-    if not args.paged:
+    if not args.paged or args.legacy:
         return finished
     ps = engine.prefix_stats()
     print(f"paged: {ps['hits']} prefix hits / {ps['misses']} misses, "

@@ -10,16 +10,19 @@ Phase-2 microbatches itself:
 Each round runs as (Phase-1 edge training at ``start_round``) -> (a
 ``RoundStepper`` advanced ``max_steps`` microbatches per :meth:`step`
 call) -> (round completion: metrics recording, state update).  The PyTorch
-counterpart of the JAX package's ``repro/live/trainer.py`` without the
-checkpoint carry: ``carry``/``restore`` are not ported yet.
+counterpart of the JAX package's ``repro/live/trainer.py``.
+
+The trainer also owns the fused-checkpoint carry for its half of the live
+system (round cursor, core-state history ring, mid-round stepper arrays);
+see :func:`repro_torch.checkpoint.io.save_live_state`.
 """
 
 from __future__ import annotations
 
-from repro_torch.core.scheduler import max_retained_staleness
+import numpy as np
+import torch
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md queue 1, slice 6: live system "
-               "and checkpoints)")
+from repro_torch.core.scheduler import max_retained_staleness
 
 
 class LiveTrainer:
@@ -44,8 +47,10 @@ class LiveTrainer:
         self.keep = 1 + max_retained_staleness(self.plans)
         self.core_log = []          # core state at the start of recent rounds
         self.prev_edge_ds, self.prev_preds = None, None
+        self._prev_edges = None     # edge ids behind prev_edge_ds (checkpoint)
         self.cursor = 0             # next plan index
         self.rounds_done = 0
+        self.last_record = None     # RoundMetrics of the last completed round
         self._plan = None           # in-flight round's plan
         self._stepper = None        # its RoundStepper (None for withdraw)
         self._pre_preds = None
@@ -54,16 +59,28 @@ class LiveTrainer:
     def mid_round(self):
         return self._plan is not None
 
+    def next_plan(self):
+        """The next not-yet-started plan (None when the stream is drained);
+        the co-scheduler gates ``start_round`` on its ``time``."""
+        if self.cursor < len(self.plans):
+            return self.plans[self.cursor]
+        return None
+
     def pending(self) -> bool:
         return self.mid_round or self.cursor < len(self.plans)
 
-    def start_round(self):
+    def start_round(self, _replay=False):
         """Run the next plan's Phase 1 (edge training, seed
-        ``cfg.seed + 31 * round``) and arm its Phase-2 stepper."""
+        ``cfg.seed + 31 * round``) and arm its Phase-2 stepper.
+        ``_replay=True`` is the checkpoint-restore path: the core-state
+        ring was already advanced when the round first started, so the
+        append is skipped (inits and teacher training recompute from the
+        restored state)."""
         fl, cfg = self.fl, self.cfg
         plan = self.plans[self.cursor]
         r = plan.round_idx
-        self.core_log = (self.core_log + [self.state])[-self.keep:]
+        if not _replay:
+            self.core_log = (self.core_log + [self.state])[-self.keep:]
         inits = [fl._resolve_init(t, self.core_log, self.state)
                  for t in plan.tasks]
         teachers = fl.train_round_edges(inits, plan.edge_ids,
@@ -97,6 +114,8 @@ class LiveTrainer:
                 + (f" t={plan.time:.2f} via {plan.trigger}"
                    if getattr(plan, "trigger", "") else ""))
         self.prev_edge_ds, self.prev_preds = cur_ds, cur_preds
+        self._prev_edges = list(edge_ids)
+        self.last_record = rec
         self._plan = self._stepper = self._pre_preds = None
         self.cursor += 1
         self.rounds_done += 1
@@ -124,8 +143,88 @@ class LiveTrainer:
             self.step()
         return self.state, self.fl.history
 
+    # -- fused-checkpoint carry (repro_torch.checkpoint.io.save_live_state)
+
     def carry(self):
-        raise NotImplementedError(f"trainer checkpoints are {_NOT_PORTED}")
+        """(arrays tree, JSON meta) capturing the trainer between steps:
+        core state + w0 + history ring + previous-round predictions, the
+        round cursor, recorded metrics/uplink logs, and, when mid-round,
+        the stepper's full carry (student/opt/method state, stacked
+        teachers, schedule position).  Keys and meta are the JAX
+        package's, so either package restores the other's checkpoint."""
+        fl = self.fl
+        base = {"state": self.state, "w0": fl.w0,
+                "core_log": list(self.core_log)}
+        if self.prev_preds is not None:
+            base["prev_preds"] = np.asarray(self.prev_preds)
+        tree = {"trainer": base}
+        meta = {"cursor": self.cursor, "rounds_done": self.rounds_done,
+                "core_log_len": len(self.core_log),
+                "prev_edges": self._prev_edges,
+                "history": [rec.as_dict() for rec in fl.history],
+                "uplink_log": list(fl.distill_engine.uplink_log),
+                "round_started": self.mid_round}
+        if self.mid_round and self._stepper is not None:
+            st = self._stepper
+            if st._full is not None:
+                # A one-shot full-round stepper holds no arrays: restore
+                # replays start_round from the restored state instead.
+                meta["stepper"] = None
+            else:
+                tree["stepper"] = {"state": st.state, "opt": st.opt_state,
+                                   "mstate": st.mstate, "tstack": st.tstack}
+                meta["stepper"] = {"i": st.i, "epoch": st.epoch,
+                                   "pos": st.pos,
+                                   "mid_epoch": st._idx is not None}
+        return tree, meta
 
     def restore(self, path, meta):
-        raise NotImplementedError(f"trainer checkpoints are {_NOT_PORTED}")
+        """Inverse of :meth:`carry` (in place, from the fused checkpoint at
+        ``path``): the trainer must be freshly constructed from the same
+        config/seeds.  Values all come from the checkpoint; a mid-round
+        stepper is rebuilt structurally by replaying ``start_round`` from
+        the restored state (the same Phase 1), then its advanced arrays
+        are overwritten."""
+        from repro_torch.checkpoint import io
+        from repro_torch.core.fl import RoundMetrics
+        from repro_torch.data.pipeline import batches
+        fl = self.fl
+        like = {"trainer": {"state": self.state, "w0": fl.w0,
+                            "core_log": [self.state] * meta["core_log_len"]}}
+        if meta["prev_edges"] is not None:
+            self.prev_edge_ds = fl._round_union(meta["prev_edges"])
+            self._prev_edges = list(meta["prev_edges"])
+            like["trainer"]["prev_preds"] = np.zeros(len(self.prev_edge_ds),
+                                                     np.int64)
+        tree = io.load_tree(path, like)["trainer"]
+        self.state, fl.w0 = tree["state"], tree["w0"]
+        self.core_log = list(tree["core_log"])
+        if meta["prev_edges"] is not None:
+            self.prev_preds = np.asarray(tree["prev_preds"])
+        self.cursor = meta["cursor"]
+        self.rounds_done = meta["rounds_done"]
+        fl.history[:] = [RoundMetrics(**d) for d in meta["history"]]
+        if meta["round_started"]:
+            self.start_round(_replay=True)
+            if meta.get("stepper") is not None and self._stepper is not None:
+                st, sm = self._stepper, meta["stepper"]
+                st_like = {"stepper": {"state": st.state, "opt": st.opt_state,
+                                       "mstate": st.mstate,
+                                       "tstack": st.tstack}}
+                loaded = io.load_tree(path, st_like)["stepper"]
+                st.state, st.opt_state = loaded["state"], loaded["opt"]
+                st.mstate, st.tstack = loaded["mstate"], loaded["tstack"]
+                st.i, st.epoch, st.pos = sm["i"], sm["epoch"], sm["pos"]
+                if sm["mid_epoch"]:
+                    # Rebuild the in-flight epoch's deterministic schedule
+                    # (and its device copy, which the scan path indexes).
+                    seed = self.cfg.seed + 997 * st.round_idx + st.epoch
+                    st._idx = np.stack(list(batches(
+                        fl.core_ds, self.cfg.batch_size, seed=seed, epochs=1,
+                        indices_only=True)))
+                    st._idx_dev = (torch.as_tensor(
+                        st._idx, device=st.engine.device)
+                        if self.cfg.scan else None)
+        # The replayed start_round re-accounted its uplink bytes; the saved
+        # log is the truth.
+        fl.distill_engine.uplink_log[:] = list(meta["uplink_log"])

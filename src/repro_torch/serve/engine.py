@@ -28,9 +28,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.transformer import (LMConfig, Transformer,
                                             attention_only)
-from repro_torch.serve.paged import PageAllocator, TRASH_PAGE, pages_for
-
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, slice 6: checkpoints)"
+from repro_torch.serve.paged import (Admission, PageAllocator, TRASH_PAGE,
+                                     pages_for)
 
 
 def make_serve_step(cfg: LMConfig):
@@ -274,11 +273,15 @@ class ServeEngine:
         self.slots, self.max_len = slots, max_len
         self.min_bucket = min_bucket
         sampler = make_sampler(sample, temperature, top_k)
+        self._stochastic = sample != "greedy"
         self._seed = seed
         self._generator = torch.Generator(device=self.device)
         # Recurrent blocks need exact-length (unbucketed) prefill: padded
         # prompts would fold pad tokens into the carried state.
         self._bucketed = attention_only(cfg)
+        # (prompt length, prefix-hit depth) of every admission run; kept
+        # across reset(), as the JAX engine's jit cache is
+        self._admit_shapes = set()
         self.paged = paged
         if paged:
             self.page_size = page_size
@@ -325,6 +328,7 @@ class ServeEngine:
         self.swaps = 0
         self.swap_log = []       # tick index of each committed swap
         self._queue = []
+        self._queue_total = 0
         self._finished = []
         self._base = 0
         self._now = 0
@@ -361,20 +365,20 @@ class ServeEngine:
         self.stage_params(params)
         self.commit_swap()
 
-    # -- not ported yet ------------------------------------------------------
-
-    def carry(self):
-        raise NotImplementedError(f"engine carry/restore is {_NOT_PORTED}")
-
-    def restore(self, path, meta, requests):
-        raise NotImplementedError(f"engine carry/restore is {_NOT_PORTED}")
-
     # -- bookkeeping ---------------------------------------------------------
 
     def _bucket(self, prompt_len: int) -> int:
         """Pow2 length bucket, capped at max_len."""
         return min(bucket_length(prompt_len, minimum=self.min_bucket),
                    self.max_len)
+
+    def prefill_compile_count(self) -> int:
+        """Distinct admission shapes run so far: one per (length bucket,
+        prefix-hit depth), the key of a jit cache entry in the JAX engine,
+        which traces one prefill executable per such shape.  The port runs
+        eagerly and has no trace to pay; the count says what the JAX
+        engine would have compiled on the same stream."""
+        return len(self._admit_shapes)
 
     def cache_page_bytes(self) -> int:
         """Bytes one physical page occupies summed over every layer's K and
@@ -425,6 +429,7 @@ class ServeEngine:
             plen = len(req.prompt)
             prompts[slot, :plen] = req.prompt
             lengths[slot], max_news[slot], fill[slot] = plen, req.max_new, True
+        self._admit_shapes.add((length, None))
         (self.tokens, self.caches, self.pos, self.budget, self.active,
          first, done_now) = self._admit_fn(
             params, self.caches, self.tokens, self.pos, self.budget,
@@ -491,6 +496,7 @@ class ServeEngine:
             sl = len(req.prompt) - start
             prompts[slot, :sl] = req.prompt[start:]
             lengths[slot], max_news[slot], fill[slot] = sl, req.max_new, True
+        self._admit_shapes.add((length, npp))
         (self.tokens, self.caches, self.pos, self.budget, self.active,
          first, done_now) = self._admit_fn(
             params, self.caches, self.pt, self.tokens, self.pos, self.budget,
@@ -517,17 +523,20 @@ class ServeEngine:
 
     # -- the loop ------------------------------------------------------------
 
-    def begin(self, requests, log=None):
+    def begin(self, requests, log=None, rebase=True):
         """Open a serving session over ``requests``; the caller advances it
         one :meth:`tick` at a time.  Arrival ticks are relative to this
-        call."""
+        call by default: a warm engine (a second session without
+        ``reset``) rebases them onto its running clock.  ``rebase=False``
+        keeps absolute arrival ticks."""
         for r in requests:
             if len(r.prompt) >= self.max_len:
                 raise ValueError(f"request {r.rid}: prompt length "
                                  f"{len(r.prompt)} >= max_len {self.max_len}")
         self._queue = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        self._queue_total = len(self._queue)
         self._finished = []
-        self._base = self.ticks
+        self._base = self.ticks if rebase else 0
         self._now = self.ticks
         self._log = log
 
@@ -535,6 +544,12 @@ class ServeEngine:
         """True while the session has queued or in-flight requests."""
         return bool(self._queue) or any(r is not None
                                         for r in self._host_active)
+
+    @property
+    def queue_cursor(self) -> int:
+        """How many of the session's requests left the queue (admitted or
+        finished): the stream cursor the live checkpoint records."""
+        return self._queue_total - len(self._queue)
 
     @torch.inference_mode()
     def tick(self):
@@ -608,6 +623,108 @@ class ServeEngine:
         while self.pending():
             self.tick()
         return self._finished
+
+    # -- fused-checkpoint carry (repro_torch.checkpoint.io.save_live_state) --
+
+    def carry(self):
+        """(arrays tree, JSON meta) capturing the engine between ticks: the
+        device-resident slot state, the sampling generator's state, and the
+        session's host bookkeeping (clock, swap epoch, stream cursor, and
+        each in-flight/finished request's lifecycle, by rid, so the
+        deterministic arrival stream can be re-spliced on restore).
+
+        The sampling state deviates from the JAX package, whose RNGs the
+        port's cannot match: the generator's state goes under
+        ``generator``, and ``key`` holds ``[0, seed]`` as uint32, the JAX
+        engine's ``key_data(jax.random.key(seed))``, which a greedy JAX
+        engine never advances, so the JAX loader finds the leaf it asks
+        for."""
+        tree = {"tokens": self.tokens, "caches": self.caches,
+                "pos": self.pos, "budget": self.budget,
+                "active": self.active,
+                "key": np.asarray([0, self._seed], np.uint32),
+                "generator": self._generator.get_state()}
+        if self.paged:
+            tree["pt"] = self.pt
+        req_meta = lambda r: {"rid": r.rid,  # noqa: E731
+                              "out": [int(t) for t in r.out],
+                              "admitted_at": r.admitted_at,
+                              "done_at": r.done_at}
+        meta = {"ticks": self.ticks, "now": self._now, "base": self._base,
+                "swaps": self.swaps, "swap_log": list(self.swap_log),
+                "queue_cursor": self.queue_cursor,
+                "queue_total": self._queue_total,
+                "slots": [None if r is None else req_meta(r)
+                          for r in self._host_active],
+                "finished": [req_meta(r) for r in self._finished]}
+        if self.paged:
+            meta["paged"] = {
+                "alloc": self._alloc.snapshot(),
+                "pt": self._pt_host.tolist(),
+                "slot_adm": [None if a is None else a.as_meta()
+                             for a in self._slot_adm]}
+        return tree, meta
+
+    @torch.inference_mode()
+    def restore(self, path, meta, requests):
+        """Inverse of :meth:`carry` (in place, from the fused checkpoint at
+        ``path``): ``requests`` must be the same arrival stream the saved
+        session was begun with; its Request objects are re-spliced into
+        queue/slots/finished by rid.  A checkpoint without ``generator``
+        (one the JAX package wrote) restores a greedy engine and is
+        refused by a sampling one: its key stream cannot be carried
+        across."""
+        from repro_torch.checkpoint import io
+        p = path if path.endswith(".npz") else path + ".npz"
+        with np.load(p) as data:
+            has_generator = "engine/generator" in data.files
+        if not has_generator and self._stochastic:
+            raise ValueError(
+                "checkpoint has no engine/generator (the JAX package's "
+                "format: its sampling key cannot drive the port's "
+                "torch.Generator); only a greedy engine restores it")
+        like = {"engine": {"tokens": self.tokens, "caches": self.caches,
+                           "pos": self.pos, "budget": self.budget,
+                           "active": self.active}}
+        if has_generator:
+            like["engine"]["generator"] = self._generator.get_state()
+        if self.paged:
+            like["engine"]["pt"] = self.pt
+        tree = io.load_tree(path, like)["engine"]
+        (self.tokens, self.caches, self.pos, self.budget, self.active) = (
+            tree["tokens"], tree["caches"], tree["pos"], tree["budget"],
+            tree["active"])
+        if has_generator:
+            self._generator.set_state(tree["generator"])
+        if self.paged:
+            pm = meta["paged"]
+            self.pt = tree["pt"]
+            self._pt_host = np.asarray(pm["pt"], np.int32)
+            self._alloc = PageAllocator.from_snapshot(pm["alloc"])
+            self._slot_adm = [None if a is None else Admission.from_meta(a)
+                              for a in pm["slot_adm"]]
+        ordered = sorted(requests, key=lambda r: (r.arrival, r.rid))
+        by_rid = {r.rid: r for r in ordered}
+        if len(ordered) != meta["queue_total"]:
+            raise ValueError(
+                f"restore stream has {len(ordered)} requests; checkpoint "
+                f"was begun with {meta['queue_total']}")
+
+        def splice(m):
+            r = by_rid[m["rid"]]
+            r.out = list(m["out"])
+            r.admitted_at, r.done_at = m["admitted_at"], m["done_at"]
+            return r
+
+        self._queue = ordered[meta["queue_cursor"]:]
+        self._queue_total = meta["queue_total"]
+        self._host_active = [None if m is None else splice(m)
+                             for m in meta["slots"]]
+        self._finished = [splice(m) for m in meta["finished"]]
+        self.ticks, self._now = meta["ticks"], meta["now"]
+        self._base = meta["base"]
+        self.swaps, self.swap_log = meta["swaps"], list(meta["swap_log"])
+        self._standby = None
 
 
 def _leaves(tree):

@@ -429,8 +429,10 @@ def test_port_entry_points_and_unported_paths():
     trainer = LiveTrainer(fl.FederatedKD(
         adapter, dataclasses.replace(cfg, core_epochs=1), core, edges, test,
         device="cpu"), 0, log=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.carry()
+    # The trainer's checkpoint carry is ported (slice 6): it runs.
+    tree, meta = trainer.carry()
+    assert meta["cursor"] == 0 and not meta["round_started"]
+    assert set(tree["trainer"]) == {"state", "w0", "core_log"}
 
 
 def test_example_and_benchmark_setups_equal_the_originals():

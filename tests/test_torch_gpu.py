@@ -10,7 +10,9 @@ scan within 3e-4), the paged and dense engines on the card against the same
 engines on the CPU (greedy tokens equal, f32 with TF32 off; the recurrent
 archs too, and the MoE archs), federated rounds on the card (with and
 without int8 uplink transport) against the same rounds on the CPU, and the
-MoE forward and an LLM Phase-2 step on the card against the CPU.
+MoE forward and an LLM Phase-2 step on the card against the CPU, and the
+engine's and the live system's checkpoints resumed on the card against an
+uninterrupted run (bit for bit).
 """
 
 import os
@@ -1397,3 +1399,116 @@ def test_recurrent_training_on_card_takes_the_plain_scans(cuda, arch):
     lib.forward(layer, sub, x, use_kernel=False).sum().backward()
     with torch.no_grad():
         lib.forward(layer, sub, x, use_kernel=True)
+
+
+def _granite_attn3():
+    import dataclasses
+    cfg = registry.get_smoke_config("granite-3-2b")
+    return dataclasses.replace(cfg, block_pattern=("attn",) * 3)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_carry_restore_on_card_resumes_bit_identical(cuda, paged,
+                                                            tmp_path):
+    """Engine carry/restore on the card (dense caches through swa_decode,
+    or the page pool through paged_decode): saved mid-stream with live
+    slots and a non-empty queue, restored into a fresh engine and resumed,
+    it emits the uninterrupted run's tokens at its clock (paged: the same
+    allocator books and host page table)."""
+    from repro_torch.checkpoint import save_tree
+    cfg = _granite_attn3()
+    params = Transformer.init(cfg, 0, device=cuda)
+    mk_reqs = lambda: build_stream("bursty", 8, vocab=cfg.vocab_size,  # noqa: E731
+                                   seed=13, prompt_max=18, out_max=6,
+                                   shared_prefix=10)
+    kw = dict(paged=True, page_size=8) if paged else {}
+    mk = lambda: ServeEngine(cfg, params, slots=2, max_len=64,  # noqa: E731
+                             device=cuda, **kw)
+    eng_a = mk()
+    done_a = eng_a.run(mk_reqs())
+    eng_b = mk()
+    eng_b.begin(mk_reqs())
+    while not (any(r is not None for r in eng_b._host_active)
+               and eng_b._queue):
+        eng_b.tick()
+    tree, meta = eng_b.carry()
+    path = str(tmp_path / "engine.npz")
+    save_tree(path, {"engine": tree}, meta)
+    kernel = paged_decode if paged else swa_decode
+    before = kernel.launches
+    eng_c = mk()
+    eng_c.restore(path, meta, mk_reqs())
+    assert eng_c.caches is not None and tree["pos"].device.type == "cuda"
+    while eng_c.pending():
+        eng_c.tick()
+    assert kernel.launches > before
+    assert {r.rid: r.out for r in eng_c._finished} == \
+        {r.rid: r.out for r in done_a}
+    assert eng_c.ticks == eng_a.ticks
+    if paged:
+        assert eng_c._alloc.snapshot() == eng_a._alloc.snapshot()
+        assert np.array_equal(eng_c._pt_host, eng_a._pt_host)
+
+
+def test_live_checkpoint_on_card_resumes_bit_identical(cuda, tmp_path):
+    """The fused live checkpoint on the card (Granite SMOKE, three attention
+    layers, f32, 2 bkd rounds): saved mid-round and mid-epoch, restored
+    into a fresh system and resumed, it ends bit-identical to the
+    uninterrupted run (state, history, tokens, clock, swaps); the kd pair
+    ran every Phase-2 step."""
+    from repro_torch.core.fl import FederatedKD, FLConfig
+    from repro_torch.live import LiveSystem, LiveTrainer, lm_adapter, lm_fl_data
+    cfg = _granite_attn3()
+    core, edges, test, _ = lm_fl_data(cfg, num_edges=2, seq_len=8,
+                                      n_seqs=96, seed=0)
+    flcfg = FLConfig(num_edges=2, rounds=2, method="bkd", core_epochs=1,
+                     edge_epochs=1, kd_epochs=2, batch_size=8, seed=0)
+    stream = lambda: build_stream("poisson", 5, vocab=cfg.vocab_size,  # noqa: E731
+                                  seed=3, prompt_max=10, out_max=4)
+
+    def mk():
+        fl = FederatedKD(lm_adapter(cfg), flcfg, core, edges, test,
+                         device=cuda)
+        trainer = LiveTrainer(fl, 0, log=None)
+        return LiveSystem(trainer, ServeEngine(cfg, trainer.state, slots=2,
+                                               max_len=32, device=cuda),
+                          quantum=1)
+
+    kd.kd_stats_fwd.launches = kd.kd_grad_bwd.launches = 0
+    sys_a = mk()
+    done_a = sys_a.run(stream(), log=None)
+    # rounds x kd_epochs x (18 core windows // batch 8) Phase-2 steps
+    steps = flcfg.rounds * flcfg.kd_epochs * (len(core) // flcfg.batch_size)
+    assert kd.kd_stats_fwd.launches == kd.kd_grad_bwd.launches == steps
+    sys_b = mk()
+    eng, tr = sys_b.engine, sys_b.trainer
+    eng.begin(stream(), log=None)
+    path = str(tmp_path / "live.npz")
+    for _ in range(1000):
+        if eng.pending():
+            eng.tick()
+        sys_b._train_quantum()
+        st = tr._stepper
+        if tr.mid_round and st is not None and st.i > 0 \
+                and st._idx is not None:
+            sys_b.save(path)
+            break
+    else:
+        pytest.fail("no mid-epoch save point")
+    sys_c = mk()
+    reqs = stream()
+    sys_c.restore(path, reqs)
+    done_c = sys_c.run(reqs, log=None, resume=True)
+    for x, y in zip(_tree_leaves(sys_c.trainer.state),
+                    _tree_leaves(sys_a.trainer.state)):
+        assert torch.equal(x, y)
+    assert [h.as_dict() for h in sys_c.trainer.fl.history] == \
+        [h.as_dict() for h in sys_a.trainer.fl.history]
+    assert {r.rid: r.out for r in done_c} == {r.rid: r.out for r in done_a}
+    assert sys_c.engine.ticks == sys_a.engine.ticks
+    assert sys_c.swap_records == sys_a.swap_records
+
+
+def _tree_leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)

@@ -32,8 +32,10 @@ from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_decode  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.checkpoint import save_tree  # noqa: E402
 from repro_torch.serve import (PageAllocator, ServeEngine, build_stream,  # noqa: E402
-                               make_sampler)
+                               make_sampler, simulate)
+from repro_torch.serve.legacy import simulate as legacy_simulate  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -183,7 +185,8 @@ def test_import_scan_covers_every_port_package():
                if root in p.parents}
     packages = {p.name for p in root.iterdir()
                 if p.is_dir() and (p / "__init__.py").exists()}
-    assert {"transport", "kernels", "core", "serve"} <= packages <= scanned
+    assert {"transport", "kernels", "core", "serve", "live",
+            "checkpoint"} <= packages <= scanned
     assert {"codecs.py", "method.py", "__init__.py"} <= {
         p.name for p in _port_sources() if root / "transport" in p.parents}
     assert REPO / "chip_smoke.py" in _port_sources()
@@ -203,20 +206,29 @@ def test_cuda_entry_points_raise_without_a_card():
     assert paged_decode.launches == 0
 
 
-def test_unported_paths_raise():
-    """What still raises: the engines' carry/restore (slice 6, checkpoints),
-    the CLI's --legacy loop (slice 9), padded prefill on recurrent
-    sub-blocks and an encoder-only engine (both as in the JAX package)."""
+def test_unported_paths_raise(tmp_path, capsys):
+    """What still raises: serving on a mesh (slice 9, sharding), padded
+    prefill on recurrent sub-blocks and an encoder-only engine (both as in
+    the JAX package).  The engines' carry/restore (slice 6) and the CLI's
+    --legacy loop, which raised until they were ported, now run."""
     cfg = registry.get_smoke_config("granite-3-2b")
     params = Transformer.init(cfg, 0, device="cpu")
     for paged in (False, True):
         engine = ServeEngine(cfg, params, slots=1, max_len=16, paged=paged,
                              device="cpu")
-        for call in (engine.carry, lambda: engine.restore(None, {}, [])):
-            with pytest.raises(NotImplementedError, match="slice 6"):
-                call()
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        serve_cli.main(["--device", "cpu", "--legacy"])
+        engine.begin([])
+        tree, meta = engine.carry()
+        path = str(tmp_path / f"engine_{paged}.npz")
+        save_tree(path, {"engine": tree}, meta)
+        engine.restore(path, meta, [])
+        assert meta["queue_total"] == 0 and not engine.pending()
+    finished = serve_cli.main(["--device", "cpu", "--legacy", "--requests",
+                               "2", "--slots", "2", "--max-len", "48"])
+    assert len(finished) == 2
+    assert "legacy on cpu" in capsys.readouterr().out
+    for sim in (simulate, legacy_simulate):
+        with pytest.raises(NotImplementedError, match="slice 9"):
+            sim(cfg, params, [], 1, 16, mesh=object())
     hybrid = dataclasses.replace(cfg, block_pattern=("rglru", "attn"))
     with pytest.raises(ValueError, match="recurrent"):
         Transformer.prefill(hybrid, params, {"tokens": torch.zeros(

@@ -30,6 +30,7 @@ from repro.models.transformer import Transformer as JTransformer  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
 from repro.serve import ServeEngine as JServeEngine  # noqa: E402
 from repro.serve import build_stream as jbuild_stream  # noqa: E402
+from repro_torch.checkpoint import save_tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.kernels.rglru import rglru  # noqa: E402
@@ -208,7 +209,7 @@ def test_prefill_decode_consistency(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_padded_prefill_and_paged_engine_raise(arch):
+def test_padded_prefill_and_paged_engine_raise(arch, tmp_path):
     _, _, cfg, _, params = _smoke(arch)
     with pytest.raises(ValueError, match="recurrent"):
         Transformer.prefill(cfg, params[0], {"tokens": torch.zeros(
@@ -216,10 +217,26 @@ def test_padded_prefill_and_paged_engine_raise(arch):
     with pytest.raises(ValueError, match="recurrent"):
         ServeEngine(cfg, params[0], slots=2, max_len=32, paged=True,
                     device="cpu")
-    engine = ServeEngine(cfg, params[0], slots=2, max_len=32, device="cpu")
-    for call in (engine.carry, lambda: engine.restore(None, {}, [])):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            call()
+    # The engine's carry/restore is ported (slice 6): a recurrent engine
+    # saved mid-stream (f32 state and conv windows in the carry) resumes
+    # to the uninterrupted run's tokens.
+    def mk():
+        return ServeEngine(cfg, params[0], slots=2, max_len=80, device="cpu")
+
+    want = {r.rid: r.out for r in mk().run(_requests(Request,
+                                                      cfg.vocab_size))}
+    engine = mk()
+    engine.begin(_requests(Request, cfg.vocab_size))
+    for _ in range(3):
+        engine.tick()
+    tree, meta = engine.carry()
+    path = str(tmp_path / "recurrent_engine.npz")
+    save_tree(path, {"engine": tree}, meta)
+    resumed, reqs = mk(), _requests(Request, cfg.vocab_size)
+    resumed.restore(path, meta, reqs)
+    while resumed.pending():
+        resumed.tick()
+    assert {r.rid: r.out for r in resumed._finished} == want
 
 
 # (rid, arrival, prompt length, max_new): three arrivals at tick 0 with two
