@@ -215,14 +215,32 @@ together; each prints its kernels' registers and spills), then:
               hold; its exit code and speedup printed), then Granite-3-2B at
               full width: the engine against the legacy loop on phase 3's
               stream, tok/s and ``swa_decode`` launches for both;
-39. kernels bench the port's ``kernels_bench`` on the card (the kd pair
+39. mesh      slice 9's meshed paths on a one-rank NCCL
+              ``make_test_mesh(device="cuda")``: phase 3's stream with
+              Granite-3-2B at full width in bf16 through ``simulate(mesh=
+              mesh)``, dense and then paged, token-equal to the ``mesh=None``
+              run, ``swa_decode``/``paged_decode`` launched layers x decode
+              ticks through ``local_map``, tok/s, TTFT and ITL p50 of both
+              runs; then phase 6's ResNet-32 federation, one bkd round with
+              Phase 1 under the mesh (cuDNN deterministic), its history
+              equal to the unmeshed run's and the kd pair once a Phase-2
+              step;
+40. kernels bench the port's ``kernels_bench`` on the card (the kd pair
               against the plain loss's autograd at 256 x 8,192, the
               gradient within 1e-5 of its largest entry; ``rglru`` and
               ``ssd`` against their plain versions);
-40. kernels   prints one JSON line per the port's kernel table (eight
-              kernels; the kd pair's launches include phases 29 and 35's,
-              the quant pair's phase 32's, ``swa_decode``'s phases 35 and
-              38's legacy loop).
+41. dryrun    the mesh dry-run (``python -m repro_torch.launch.dryrun``,
+              CPU and meta tensors only, started as subprocesses when the
+              script starts): granite-3-2b train_4k and decode_32k at 16 x
+              16 and kimi-k2-1t-a32b decode_32k at 2 x 16 x 16; prints each
+              roofline row (compute, memory and collective ms at the H100's
+              rates, bottleneck, peak GB a device against the card's 80 GB)
+              and its seconds; checks the per-device parameter bytes
+              (30,748,672 and 8,270,983,168) and ``param_count``;
+42. kernels   prints one JSON line per the port's kernel table (eight
+              kernels; the kd pair's launches include phases 29, 35 and
+              39's, the quant pair's phase 32's, ``swa_decode``'s phases
+              35, 38's legacy loop and 39's, ``paged_decode``'s 39's).
 
 Each phase's seconds are printed (``[time]``).
 
@@ -3410,6 +3428,196 @@ def phase_legacy():
     return leg_swa
 
 
+# -- slice 9: meshed serving and Phase 1, and the mesh dry-run ---------------
+
+def _mesh_serve(cfg, params, mesh, paged):
+    """Phase 3's stream through ``simulate`` without a mesh and then with
+    one (the decode kernel's count set to 0 just before each run, read just
+    after); returns the meshed run's launches."""
+    from repro_torch.serve import simulate
+    kernel = pd_mod.paged_decode if paged else swa_mod.swa_decode
+    other = swa_mod.swa_decode if paged else pd_mod.paged_decode
+    kw = dict(paged=True, page_size=PAGE) if paged else {}
+    label = "paged" if paged else "dense"
+    engine = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                         device="cuda", **kw)
+    engine.run(_phase3_stream(cfg, 2))        # warm-up
+    engine.reset()
+    out = {}
+    for name in ("mesh=None", "mesh"):
+        reqs = _phase3_stream(cfg)
+        torch.cuda.synchronize()
+        before_other = other.launches
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        if name == "mesh":
+            finished = simulate(cfg, params, reqs, SLOTS, MAX_LEN, mesh=mesh,
+                                log=None, device="cuda", **kw)
+        else:
+            finished = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = summarize(finished, wall)
+        out[name] = (finished, kernel.launches)
+        print(f"[mesh] {cfg.name} {label} {name}: {stats['tokens']} tokens in "
+              f"{stats['seconds']}s = {stats['tok_per_sec']} tok/s; TTFT p50 "
+              f"{stats['ttft_p50_ms']} ms; ITL p50 {stats['itl_p50_ms']} ms; "
+              f"{kernel.__name__} launches {kernel.launches}")
+        check(other.launches == before_other,
+              f"{label} {name}: launched {other.__name__}")
+    (plain, _), (meshed, launches) = out["mesh=None"], out["mesh"]
+    check([(r.rid, r.out) for r in meshed] == [(r.rid, r.out) for r in plain],
+          f"{label}: meshed tokens differ from the mesh=None run's")
+    want = cfg.num_layers * engine.decode_ticks
+    check(out["mesh=None"][1] == launches == want > 0,
+          f"{label}: {kernel.__name__} launched {launches} times meshed, "
+          f"want {cfg.num_layers} x {engine.decode_ticks}")
+    return launches
+
+
+def phase_mesh():
+    """Granite-3-2B serving and a ResNet-32 bkd round's Phase 1 on a
+    one-rank NCCL mesh; returns (paged_decode, swa_decode, kd_stats_fwd,
+    kd_grad_bwd) launches of the meshed runs."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh, mesh_context
+    from repro_torch.sharding import local as sharding_local
+    mesh = make_test_mesh(device="cuda")
+    calls = []
+    run_local = sharding_local.run_local
+
+    def counted(fn, *a, **k):
+        calls.append(getattr(fn, "__name__", "fn"))
+        return run_local(fn, *a, **k)
+
+    sharding_local.run_local = counted
+    try:
+        print(f"[mesh] {mesh}; backend {dist.get_backend()}")
+        cfg = registry.get_config("granite-3-2b")
+        params = Transformer.init(cfg, 0, device="cuda")
+        swa = _mesh_serve(cfg, params, mesh, paged=False)
+        paged = _mesh_serve(cfg, params, mesh, paged=True)
+        check(len(calls) > 0, "the meshed runs called no local_map")
+        print(f"[mesh] local_map calls in the meshed runs: {len(calls)}")
+        del params
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        silos = _cifar_silos()
+        hists, kd = {}, None
+        for name in ("mesh=None", "mesh"):
+            core, edges, test = silos
+            fcfg = FLConfig(num_edges=3, rounds=1, method="bkd",
+                            core_epochs=2, edge_epochs=2, kd_epochs=2,
+                            batch_size=128, lr=0.1, kd_lr=0.02, tau=2.0)
+            fl = FederatedKD(resnet_adapter(RESNET32), fcfg, core, edges,
+                             test, device="cuda")
+            for c in KD_COUNTERS.values():
+                c.launches = 0
+            sharded = []
+            if name == "mesh":
+                from repro_torch.core import vectorized
+                train_sharded = vectorized._train_sharded
+                vectorized._train_sharded = lambda *a: (
+                    sharded.append(1), train_sharded(*a))[1]
+            t0 = time.perf_counter()
+            try:
+                with (mesh_context(mesh) if name == "mesh"
+                      else contextlib.nullcontext()):
+                    _, hist = fl.run(0, log=None)
+            finally:
+                if name == "mesh":
+                    vectorized._train_sharded = train_sharded
+            torch.cuda.synchronize()
+            hists[name] = [h.as_dict() for h in hist]
+            steps = fcfg.kd_epochs * max(len(core) // fcfg.batch_size, 1)
+            kd = (kd_mod.kd_stats_fwd.launches, kd_mod.kd_grad_bwd.launches)
+            print(f"[mesh] ResNet-32 bkd, 1 round, {name}: "
+                  f"{time.perf_counter() - t0:.2f}s; history {hists[name]}; "
+                  f"kd pair launches {kd} for {steps} Phase-2 steps; Phase 1 "
+                  f"sharded over the edge axis {len(sharded)} time(s)")
+            check(kd == (steps, steps), f"{name}: kd pair launched {kd}, "
+                  f"want {steps} each")
+            if name == "mesh":
+                check(len(sharded) == 1, "Phase 1 did not shard its edges")
+        torch.backends.cudnn.deterministic = det
+        check(hists["mesh"] == hists["mesh=None"],
+              "the meshed round's history differs from the unmeshed one's")
+    finally:
+        sharding_local.run_local = run_local
+        dist.destroy_process_group()
+    return paged, swa, kd[0], kd[1]
+
+
+# (arch, shape, multi-pod, per-device parameter bytes by the reference's
+# rules, params_total, params_active)
+DRYRUN_CASES = (
+    ("granite-3-2b", "train_4k", False, 30_748_672, 2_432_862_208,
+     2_432_862_208),
+    ("granite-3-2b", "decode_32k", False, 30_748_672, 2_432_862_208,
+     2_432_862_208),
+    ("kimi-k2-1t-a32b", "decode_32k", True, 8_270_983_168,
+     1_042_512_049_152, 32_406_205_440),
+)
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+
+
+def start_dryruns():
+    """Starts the dry-run subprocesses (CPU and meta tensors only, no card)
+    so that they run beside the card's phases; ``phase_dryrun`` waits."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, multi_pod, *_ in DRYRUN_CASES:
+        mesh = "2x16x16" if multi_pod else "16x16"
+        out = DRYRUN_DIR / f"{arch}_{shape}_{mesh}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        err = open(out.with_suffix(".err"), "w")
+        procs.append((out, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err)))
+        err.close()
+    return procs
+
+
+def phase_dryrun(procs):
+    for (out, t0, p), (arch, shape, multi_pod, pbytes, total, active) in zip(
+            procs, DRYRUN_CASES):
+        try:
+            p.wait(timeout=900)
+        finally:
+            if p.poll() is None:
+                p.kill()
+        secs = time.perf_counter() - t0
+        check(p.returncode == 0, f"dryrun {arch} {shape}: exit "
+              f"{p.returncode}\n{out.with_suffix('.err').read_text()[-3000:]}")
+        r = json.loads(out.read_text())
+        rl, pd = r["roofline"], r["per_device"]
+        print(f"[dryrun] {arch} {shape} {r['mesh']}: compute "
+              f"{rl['compute_s'] * 1e3:.3f} ms, memory "
+              f"{rl['memory_s'] * 1e3:.3f} ms, collective "
+              f"{rl['collective_s'] * 1e3:.3f} ms (H100 rates); bottleneck "
+              f"{r['bottleneck']}; peak {pd['peak_bytes'] / 1e9:.2f} GB a "
+              f"device of the card's 80 GB; parameter bytes a device "
+              f"{r['param_bytes_per_device']}; params {r['params_total']} / "
+              f"{r['params_active']} active; build {r['lower_s']}s + meta run "
+              f"{r['compile_s']}s; its result read {secs:.1f}s after its "
+              f"start")
+        check(r["param_bytes_per_device"] == pbytes,
+              f"{arch} {r['mesh']}: {r['param_bytes_per_device']} parameter "
+              f"bytes a device, want {pbytes}")
+        check((r["params_total"], r["params_active"]) == (total, active),
+              f"{arch}: param_count {r['params_total']}/{r['params_active']}")
+        check(all(math.isfinite(v) and v > 0 for v in rl.values()),
+              f"{arch} {shape}: roofline {rl}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3433,6 +3641,7 @@ def main():
         return 1
     t0 = time.perf_counter()
     torch.cuda.set_device(0)
+    dryruns = start_dryruns()
     name = timed(phase_device)
     timed(phase_build)
     entry = timed(phase_kernel)
@@ -3484,7 +3693,13 @@ def main():
     timed(phase_engine_carry)
     timed(phase_live_checkpoint)
     swa_entry["launches"] += timed(phase_legacy)
+    paged_mesh, swa_mesh, kd_mesh, kdg_mesh = timed(phase_mesh)
+    entry["launches"] += paged_mesh
+    swa_entry["launches"] += swa_mesh
+    kd_entries[0]["launches"] += kd_mesh
+    kd_entries[1]["launches"] += kdg_mesh
     timed(phase_kernels_bench)
+    timed(phase_dryrun, dryruns)
     print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries
                       + [swa_entry, ssd_entry, rglru_entry]}))
     print(f"[done] {time.perf_counter() - t0:.1f}s")

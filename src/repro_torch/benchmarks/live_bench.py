@@ -21,7 +21,10 @@ Emits one JSON document (stdout, plus --out FILE) with the reference's
 keys (``config.backend`` names the device) and its exit rule: every
 co-run must complete its rounds, commit real swaps and keep its drift
 metrics finite; throughput is recorded, not gated.  The reference runs
-under a one-device test mesh; the port runs on one device without one.
+under a one-device test mesh; the port runs on one device without one (a
+one-rank mesh places nothing; the meshed serving path is
+``simulate(mesh=...)``, and the launch drivers under a mesh are ROADMAP
+queue 1's last slice).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.live_bench \\
         [--smoke] [--device cpu] [--out f.json]

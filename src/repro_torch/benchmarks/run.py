@@ -6,10 +6,9 @@ Prints ``name,us_per_call,derived`` CSV rows per figure and for the kernels
 ``rglru`` and ``ssd`` parity), then ``# claim-checks: n/m passed`` and the
 names of the checks that failed.  ``--fast`` runs 3 rounds where the
 default runs 5 (fig7 one fewer, at least 2; fig9 one more), as the
-reference does.
-
-The reference also prints a roofline summary when dry-run dumps of its TPU
-mesh exist; the port has no mesh dry-run (ROADMAP.md queue 1, slice 9).
+reference does.  When dry-run dumps exist (``experiments/dryrun``, written
+by ``repro_torch.launch.sweep``), the 16 x 16 roofline table is printed
+before the tally, as the reference prints its own.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast] [--device cpu]
 """
@@ -17,6 +16,7 @@ mesh exist; the port has no mesh dry-run (ROADMAP.md queue 1, slice 9).
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.benchmarks import (fig4_main, fig5_forget, fig7_aggregation,
                                     fig9_straggler, kernels_bench)
@@ -50,6 +50,11 @@ def main(argv=None):
     _, c9 = fig9_straggler.main(rounds=rounds + 1, **dev)
     print("# kernels — fused KD loss / RG-LRU / SSD")
     kernels_bench.main(**dev)
+
+    if os.path.isdir("experiments/dryrun"):
+        print("# roofline — from the multi-pod dry-run (H100 rates)")
+        from repro_torch.benchmarks import roofline
+        roofline.main(["--mesh", "16x16"])
 
     print(tally({**c4, **c5, **c7, **c9}))
     return {"fig4": c4, "fig5": c5, "fig7": c7, "fig9": c9}

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.local import settle
 from repro_torch.tree import tree_map
 
 NEG_INF = -1e30
@@ -46,7 +47,7 @@ def ce_loss(logits, labels, *, vocab=None, mask=None):
     logits: (..., V); labels: (...) int."""
     logits = _mask_pad(logits.float(), vocab)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ll = settle(torch.gather(logits, -1, labels.long()[..., None]))[..., 0]
     return _reduce(lse - ll, mask)
 
 

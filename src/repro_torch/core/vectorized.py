@@ -20,8 +20,15 @@ becomes a Python loop over steps here:
     host, where the step counters are known.
 
 BN state comes back from the model as a value, never by in-place updates,
-which ``vmap`` needs.  Sharding the edge axis over several cards is not
-ported yet (ROADMAP.md queue 1, slice 9).
+which ``vmap`` needs.
+
+Under an active mesh (``repro_torch.launch.mesh.mesh_context``) the edge
+axis is sharded over the data axes the logical "batch" rule resolves to,
+as the reference's ``shard_map`` does: each rank trains its block of edges
+(its coordinate on those axes) with the same vmapped trainer on plain
+local tensors, and the stacked states are all-gathered over those axes.
+Where the rule resolves to no axis (the edge count does not divide), every
+rank trains every edge.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from repro_torch.core import distill
 from repro_torch.data.pipeline import batches
 from repro_torch.optim import decay_lr, sgd_momentum
+from repro_torch.sharding.rules import get_active_mesh_or_none, logical_to_spec
 from repro_torch.tree import (stack_trees, tree_device, tree_map,
                               unstack_tree)
 
@@ -127,6 +135,16 @@ def make_edge_trainer(adapter, lr, weight_decay):
                                                         has_aux=True))
 
     def train(stacked, plan: BatchPlan):
+        mesh = get_active_mesh_or_none()
+        if mesh is not None:
+            axes = logical_to_spec(("batch",), plan.valid.shape[:1], mesh)[0]
+            if axes is not None:
+                return _train_sharded(train_local, stacked, plan, mesh,
+                                      (axes,) if isinstance(axes, str)
+                                      else axes)
+        return train_local(stacked, plan)
+
+    def train_local(stacked, plan: BatchPlan):
         device = tree_device(stacked)
         r, s = plan.valid.shape
         x = torch.as_tensor(plan.x, device=device)
@@ -155,6 +173,28 @@ def make_edge_trainer(adapter, lr, weight_decay):
         return stacked
 
     return train
+
+
+def _train_sharded(train_local, stacked, plan: BatchPlan, mesh, axes):
+    """This rank's block of the edge axis trained by ``train_local``, the
+    blocks all-gathered over the mesh ``axes`` (mesh-major block order,
+    as a DTensor sharded on those axes lays them out)."""
+    from torch.distributed.tensor import DTensor, Shard
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    block, n = 0, 1
+    for a in axes:
+        i = names.index(a)
+        block, n = block * mesh.size(i) + coord[i], n * mesh.size(i)
+    per = plan.valid.shape[0] // n
+    lo, hi = block * per, (block + 1) * per
+    part = BatchPlan(**{f.name: getattr(plan, f.name)[lo:hi]
+                        for f in dataclasses.fields(BatchPlan)})
+    out = train_local(tree_map(lambda t: t[lo:hi], stacked), part)
+    sub = mesh[axes] if len(axes) > 1 else mesh[axes[0]]
+    return tree_map(lambda t: DTensor.from_local(
+        t.contiguous(), sub, [Shard(0)] * len(axes),
+        run_check=False).full_tensor(), out)
 
 
 class VectorizedEdgeEngine:

@@ -1,5 +1,7 @@
 """Public wrappers around the port's kernels: a CPU tensor takes the plain
-PyTorch version, a CUDA tensor the hand-written kernel."""
+PyTorch version, a CUDA tensor the hand-written kernel.  A ``meta`` tensor
+(shapes only: the mesh dry-run's) also takes the plain version, so that
+shapes and operation counts propagate."""
 
 from __future__ import annotations
 
@@ -13,12 +15,15 @@ from repro_torch.kernels.ssd import chunk_size
 from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.kernels.swa_decode import swa_decode
 
+# Devices whose tensors take a kernel's plain version.
+PLAIN = ("cpu", "meta")
+
 
 def paged_decode_attn(q, k_pool, v_pool, pt, pos, *, window=None):
     """Block-paged decode attention (the paged ServeEngine's tick hot spot).
     q: (B, N, G, D); k/v_pool: (P, page_size, N, D); pt: (B, PP) int32 page
     table; pos: (B,) int32."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return _ref.paged_decode_ref(q, k_pool, v_pool, pt, pos, window=window)
     return paged_decode(q, k_pool, v_pool, pt, pos, window=window)
 
@@ -29,7 +34,7 @@ def swa_decode_attn(q, k_cache, v_cache, pos, *, window=None, ring=False):
     scalar or (B,) int, broadcast to (B,) int32."""
     b = q.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device).expand(b)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN:
         return _ref.swa_decode_ref(q, k_cache, v_cache, pos, window=window,
                                    ring=ring)
     return swa_decode(q, k_cache, v_cache, pos.contiguous(), window=window,
@@ -56,7 +61,7 @@ def ssd(x, dt, A, B, C, chunk):
     p) f32 and the final state (b, h, p, n) f32."""
     q = chunk_size(chunk, x.shape[1])
     x, B, C = x.float(), B.float(), C.float()
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN:
         return _ref.ssd_ref(x, dt, A, B, C, q)
     _forward_only("ssd", x, dt, A, B, C)
     return ssd_kernel(x.contiguous(), dt.contiguous(), A.contiguous(),
@@ -66,7 +71,7 @@ def ssd(x, dt, A, B, C, chunk):
 def rglru(a, b):
     """The RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t (every RG-LRU
     layer's prefill).  a, b (B, S, D) f32 -> h (B, S, D) f32."""
-    if a.device.type == "cpu":
+    if a.device.type in PLAIN:
         return _ref.rglru_ref(a, b)
     _forward_only("rglru", a, b)
     return rglru_kernel(a.contiguous(), b.contiguous())
@@ -76,7 +81,7 @@ def kd_stats(labels, s, t, b, tau):
     """The fused KD loss's forward stats (rows, 11): ``kd_stats_fwd`` on a
     CUDA tensor, ``kd_stats_ref`` on a CPU one; tau > 0 on both."""
     _kd.check_tau(tau, "kd_stats")
-    if s.device.type == "cpu":
+    if s.device.type in PLAIN:
         return _ref.kd_stats_ref(labels, s, t, b, tau)
     return _kd.kd_stats_fwd(labels, s, t, b, tau)
 
@@ -84,7 +89,7 @@ def kd_stats(labels, s, t, b, tau):
 def kd_grad(labels, g, stats, s, t, b, tau, mean_scale):
     """The fused KD loss's student gradient: ``kd_grad_bwd`` on a CUDA
     tensor, ``kd_grad_ref`` on a CPU one."""
-    if s.device.type == "cpu":
+    if s.device.type in PLAIN:
         return _ref.kd_grad_ref(labels, g, stats, s, t, b, tau, mean_scale)
     return _kd.kd_grad_bwd(labels, g, stats, s, t, b, tau, mean_scale)
 
@@ -138,7 +143,7 @@ def kd_quant_stats(labels, s, codes, scale, zero, b, tau):
     ``kd_quant_stats_fwd`` on a CUDA tensor, ``kd_quant_stats_ref`` on a CPU
     one; tau > 0 on both."""
     _kd.check_tau(tau, "kd_quant_stats")
-    if s.device.type == "cpu":
+    if s.device.type in PLAIN:
         return _ref.kd_quant_stats_ref(labels, s, codes, scale, zero, b, tau)
     return _kd.kd_quant_stats_fwd(labels, s, codes, scale, zero, b, tau)
 
@@ -147,7 +152,7 @@ def kd_quant_grad(labels, g, stats, s, codes, scale, zero, b, tau,
                   mean_scale):
     """The dequant-fused loss's student gradient: ``kd_quant_grad_bwd`` on a
     CUDA tensor, ``kd_quant_grad_ref`` on a CPU one."""
-    if s.device.type == "cpu":
+    if s.device.type in PLAIN:
         return _ref.kd_quant_grad_ref(labels, g, stats, s, codes, scale, zero,
                                       b, tau, mean_scale)
     return _kd.kd_quant_grad_bwd(labels, g, stats, s, codes, scale, zero, b,

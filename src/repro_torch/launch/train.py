@@ -13,8 +13,10 @@ round (distill-on-arrival), so the two-level ``hier_*`` streams are
 refused.
 
 By default ``--arch <id>`` runs its reduced (SMOKE) config; ``--full``
-runs the full-width config.  There is no mesh: the port trains on one
-device.  On a CUDA device the Phase-2 loss runs through the hand-written
+runs the full-width config.  This CLI runs without a mesh, on one
+device (the port's sharding rules, meshed Phase 1 and the dry-run are in;
+this CLI under ``make_test_mesh()`` and ``torchrun`` is ROADMAP queue 1's
+last slice).  On a CUDA device the Phase-2 loss runs through the hand-written
 kernel pair ``kd_stats_fwd`` + ``kd_grad_bwd`` (``--loss-backend
 auto``/``pallas``).
 

@@ -34,6 +34,8 @@ from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import rglru as rglru_lib
 from repro_torch.nn import ssm as ssm_lib
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.rules import constrain
 
 NEG_INF = -1e30
 
@@ -89,6 +91,9 @@ class LMConfig:
     param_dtype: str = "bfloat16"
     remat: str = "block"             # "none" | "block": recompute each
                                      # super-block in the backward pass
+    seq_parallel: bool = False       # Megatron-style sequence parallelism:
+                                     # residual stream sharded over "model"
+                                     # between blocks (under a mesh)
     ring_cache: bool = False
     q_chunk: int = 512
     vocab_pad: int = 256
@@ -158,9 +163,10 @@ def _norm_apply(cfg, p, x):
 
 
 def _dense_mlp_apply(cfg: LMConfig, p, x):
-    up = L.dense(p["up"], x)
+    up = constrain(L.dense(p["up"], x), ("batch", None, "mlp"))
     if "gate" in p:
-        h = L.swiglu(L.dense(p["gate"], x), up)
+        gate = constrain(L.dense(p["gate"], x), ("batch", None, "mlp"))
+        h = L.swiglu(gate, up)
     elif cfg.mlp == "squared_relu":
         h = L.squared_relu(up)
     else:
@@ -201,14 +207,19 @@ def _mixer_apply(cfg: LMConfig, kind: str, p, x, positions):
 
 
 def _subblock_fwd(cfg: LMConfig, kind: str, p, x, positions):
-    """One sub-block of the full-sequence forward: (x, aux_loss)."""
+    """One sub-block of the full-sequence forward: (x, aux_loss).  Under a
+    mesh the residual stream is placed as the JAX function places it: with
+    ``seq_parallel`` sequence-sharded over "model" (each mixer and MLP
+    output, a partial sum over that axis, is placed there before the
+    residual add: a reduce-scatter rather than an all-reduce)."""
+    res = ("batch", "seq_sp" if cfg.seq_parallel else None, "embed_act")
     y = _mixer_apply(cfg, kind, p["mixer"], _norm_apply(cfg, p["ln1"], x),
                      positions)
-    x = x + y
+    x = constrain(x, res) + constrain(y, res)
     aux = 0.0
     if cfg.mlp != "none":
         m, aux = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
-        x = x + m
+        x = x + constrain(m, res)
     return x, aux
 
 
@@ -242,6 +253,31 @@ def _subblock_decode(cfg: LMConfig, kind: str, p, cache, x, pos, positions):
         m, _ = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
         x = x + m
     return x, cache
+
+
+def _scatter_rows(x, idx, values):
+    """``x[b, idx[b, j]] = values[b, j]``: x (B, S, D), idx (B, P), values
+    (B, P, D); returns x (written in place).  Under a mesh every rank
+    writes the batch rows it holds (only x's batch may be sharded) into a
+    new tensor, which autograd can differentiate."""
+    if not _local.is_dtensor(x):
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        x[rows, idx.long()] = values
+        return x
+    from torch.distributed.tensor import Shard
+    mesh, have = x.device_mesh, tuple(x.placements)
+    if any(p.is_shard() and p.dim != 0 for p in have):
+        raise NotImplementedError(
+            f"vision scatter into a tensor placed {have}: only the batch "
+            "may be sharded")
+    ipl = _local.follow(have, {0: Shard(0)})
+
+    def scatter(xl, il, vl):
+        rows = torch.arange(xl.shape[0], device=xl.device)[:, None]
+        return xl.index_put((rows, il.long()), vl.to(xl.dtype))
+
+    return _local.run_local(scatter, mesh, have, (x, idx, values),
+                            (have, ipl, ipl))
 
 
 def attention_only(cfg: LMConfig) -> bool:
@@ -374,12 +410,61 @@ def _subblock_init(cfg: LMConfig, kind: str, stack, draw):
     return p
 
 
+def _dense_mlp_specs(cfg: LMConfig):
+    s = {"up": L.dense_specs()}
+    if cfg.mlp in ("swiglu", "moe"):
+        s["gate"] = L.dense_specs()
+    s["down"] = L.dense_specs("mlp", "embed")
+    return s
+
+
+def _subblock_specs(cfg: LMConfig, kind: str):
+    """Logical axes of one (unstacked) sub-block's parameters."""
+    if kind in _ATTENTION:
+        mixer = attn_lib.specs(cfg.attn_cfg(kind == "local"))
+    else:
+        lib, sub = _recurrent(cfg, kind)
+        mixer = lib.specs(sub)
+    s = {"ln1": L.norm_specs(cfg.norm), "mixer": mixer}
+    if cfg.mlp == "none":
+        return s
+    if cfg.mlp == "moe":
+        mlp = moe_lib.specs(cfg.moe_cfg())
+        if cfg.shared_experts:
+            mlp["shared"] = _dense_mlp_specs(cfg)
+    else:
+        mlp = _dense_mlp_specs(cfg)
+    s["ln2"], s["mlp"] = L.norm_specs(cfg.norm), mlp
+    return s
+
+
+def _subblock_cache_specs(cfg: LMConfig, kind: str):
+    if kind in _ATTENTION:
+        return attn_lib.cache_specs()
+    return _recurrent(cfg, kind)[0].cache_specs()
+
+
+def _layer_tree(cfg: LMConfig, one):
+    """{"blocks": {"b{i}": one(kind) with "layers" prepended}, "tail{j}":
+    one(kind)}: the tree shape of the params, caches and pools."""
+    pat = cfg.block_pattern
+    tree = {}
+    if cfg.n_super > 0:
+        tree["blocks"] = {f"b{i}": L.stacked(one(kind))
+                          for i, kind in enumerate(pat)}
+    for j in range(cfg.n_tail):
+        tree[f"tail{j}"] = one(pat[j % len(pat)])
+    return tree
+
+
 class _Draw:
-    """Truncated-normal parameter draws from one seeded generator."""
+    """Truncated-normal parameter draws from one seeded generator (none on
+    the ``meta`` device, where nothing is drawn)."""
 
     def __init__(self, cfg: LMConfig, device, seed):
         self.cfg, self.device = cfg, device
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.gen = (None if device.type == "meta"
+                    else torch.Generator(device=device).manual_seed(seed))
 
     def __call__(self, shape, std):
         return L.trunc_normal(shape, std, self.cfg.pdt, self.device, self.gen)
@@ -419,6 +504,32 @@ class Transformer:
                                   1.0 / math.sqrt(cfg.d_model))}
         return p
 
+    @staticmethod
+    def specs(cfg: LMConfig):
+        """The logical spec tree of :meth:`init`'s parameters (the second
+        value of the JAX ``Transformer.init``): each leaf a tuple of
+        logical axis names, "layers" first on stacked blocks."""
+        s = {}
+        if cfg.is_encoder:
+            s["in_proj"] = L.dense_specs(None, "embed", use_bias=True)
+            s["mask_embed"] = (None,)
+        else:
+            s["embed"] = {"table": ("vocab", "embed")}
+        s.update(_layer_tree(cfg, lambda kind: _subblock_specs(cfg, kind)))
+        s["ln_f"] = L.norm_specs(cfg.norm)
+        s["unembed"] = L.dense_specs("embed", "vocab")
+        return s
+
+    @staticmethod
+    def cache_specs(cfg: LMConfig):
+        """The logical spec tree of :meth:`init_cache`'s caches."""
+        return _layer_tree(cfg, lambda kind: _subblock_cache_specs(cfg, kind))
+
+    @staticmethod
+    def paged_cache_specs(cfg: LMConfig):
+        """The logical spec tree of :meth:`init_paged_cache`'s pools."""
+        return _layer_tree(cfg, lambda kind: attn_lib.paged_cache_specs())
+
     # -- shared plumbing ----------------------------------------------------
 
     @staticmethod
@@ -437,10 +548,10 @@ class Transformer:
             x = L.dense(params["in_proj"], feats)
         else:
             x = L.embedding(params["embed"], batch["tokens"]).to(cfg.adt)
+        x = constrain(x, ("batch", None, "embed_act"))
         if cfg.is_vlm and "vision_embeds" in batch:
-            rows = torch.arange(x.shape[0], device=x.device)[:, None]
-            x[rows, batch["vision_positions"].long()] = \
-                batch["vision_embeds"].to(cfg.adt)
+            x = _scatter_rows(x, batch["vision_positions"],
+                              batch["vision_embeds"].to(cfg.adt))
         positions = batch.get("positions")
         if positions is None:
             bsz, slen = x.shape[0], x.shape[1]
@@ -453,9 +564,12 @@ class Transformer:
     @staticmethod
     def _unembed(cfg: LMConfig, params, x):
         x = _norm_apply(cfg, params["ln_f"], x)
-        logits = L.dense(params["unembed"], x).float()
+        logits = constrain(L.dense(params["unembed"], x).float(),
+                           ("batch", None, "vocab"))
         if cfg.padded_vocab != cfg.vocab_size:
-            logits[..., cfg.vocab_size:] = NEG_INF
+            pad = torch.arange(cfg.padded_vocab,
+                               device=x.device) >= cfg.vocab_size
+            logits = logits.masked_fill_(pad, NEG_INF)
         return logits
 
     # -- full-sequence forward (train / prefill trunk) ----------------------

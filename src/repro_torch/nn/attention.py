@@ -7,6 +7,14 @@ Layouts follow the JAX package: ``wq`` (d, H, D), ``wk``/``wv`` (d, N, D),
 Decode steps update caches and pools in place (the JAX functions return new
 arrays): they are the largest tensors a layer owns, and every caller
 replaces its cache with the returned one anyway.
+
+Activations and caches are placed by the JAX function's logical axes
+(``constrain``, a no-op without an active mesh).  Under a mesh the cache
+writes and the decode kernels run on every rank's local shards
+(``repro_torch.sharding.local.run_local``): a dense cache is written where
+each rank holds it, and the kernels see whole kv-head groups (the kv-head
+dimension sharded where the kv heads divide the mesh axis, replicated
+where they do not; a sequence-sharded cache is gathered for them).
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.nn.rope import apply_mrope, apply_rope
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.rules import constrain, logical_to_spec, placements
 
 NEG_INF = -1e30
 
@@ -48,6 +58,31 @@ class AttnConfig:
         return self.num_heads // self.kv_heads
 
 
+def specs(cfg: AttnConfig):
+    """Logical axes of the attention parameters (``wq``/``wk``/``wv``
+    (d, heads, D), ``wo`` (heads, D, d), the biases and qk-norm scales)."""
+    s = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        s.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        s.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return s
+
+
+def cache_specs():
+    return {"k": ("batch", "kv_seq", "kv_heads", None),
+            "v": ("batch", "kv_seq", "kv_heads", None)}
+
+
+def paged_cache_specs():
+    return {"k": (None, None, "kv_heads", None),
+            "v": (None, None, "kv_heads", None)}
+
+
 def _headwise_rms(x, scale, eps=1e-6):
     dt = x.dtype
     x = x.float()
@@ -55,10 +90,34 @@ def _headwise_rms(x, scale, eps=1e-6):
     return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
 
 
+def _heads(x, w, axis):
+    """``einsum("bsd,dhk->bshk", x, w)``.  Under a mesh every rank projects
+    its batch rows onto its block of heads (the heads sharded as the
+    logical ``axis`` resolves, column-parallel; the weight gathered over
+    its FSDP axis): DTensor's own einsum flattens (h, k) and then cannot
+    split a dimension sharded over more ranks than ``h`` divides."""
+    mesh = _local.mesh_of(x, w)
+    if mesh is None:
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    from torch.distributed.tensor import Partial, Shard
+    b, s, _ = x.shape
+    out = placements(logical_to_spec(("batch", None, axis, None),
+                                     (b, s, *w.shape[1:]), mesh), mesh)
+    xpl = _local.follow(out, {0: Shard(0)})
+    wpl = _local.follow(out, {2: Shard(1)})
+    # a rank's part of a gradient: summed over the other ranks' batch rows
+    # (the weight) or heads (the input)
+    xgrad = tuple(Partial() if p == Shard(2) else q for p, q in zip(out, xpl))
+    wgrad = tuple(Partial() if p == Shard(0) else q for p, q in zip(out, wpl))
+    return _local.run_local(
+        lambda xl, wl: torch.einsum("bsd,dhk->bshk", xl, wl), mesh, out,
+        (x, w), (xpl, wpl), (xgrad, wgrad))
+
+
 def _project_qkv(params, cfg: AttnConfig, x, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dnk->bsnk", x, params["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dnk->bsnk", x, params["wv"].to(x.dtype))
+    q = _heads(x, params["wq"].to(x.dtype), "heads")
+    k = _heads(x, params["wk"].to(x.dtype), "kv_heads")
+    v = _heads(x, params["wv"].to(x.dtype), "kv_heads")
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -72,7 +131,71 @@ def _project_qkv(params, cfg: AttnConfig, x, positions):
     elif cfg.rope == "mrope":
         q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
         k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv_heads", None))
+    v = constrain(v, ("batch", None, "kv_heads", None))
     return q, k, v
+
+
+def write_slots(cache, value, slot):
+    """``cache[b, slot[b]] = value[b]`` for every row b: cache (B, W, N, D),
+    value (B, N, D), slot (B,).  Under a mesh every rank writes the rows it
+    holds: the rows whose slot falls in its block of a sequence-sharded
+    cache (the others keep their value)."""
+    if not _local.is_dtensor(cache):
+        value, slot = _local.full(value), _local.full(slot)
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, slot.long()] = value.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Shard
+    mesh, have = cache.device_mesh, tuple(cache.placements)
+    vpl = _local.follow(have, {0: Shard(0), 2: Shard(1)})
+    spl = _local.follow(have, {0: Shard(0)})
+    off = _local.shard_offset(mesh, have, 1, cache.to_local().shape[1])
+
+    def write(c, v, s):
+        rows = torch.arange(c.shape[0], device=c.device)
+        s = s.long() - off
+        i = s.clamp(0, c.shape[1] - 1)
+        keep = ((s >= 0) & (s < c.shape[1]))[:, None, None]
+        c[rows, i] = torch.where(keep, v.to(c.dtype), c[rows, i])
+
+    _local.run_local(write, mesh, None, (cache, value, slot), (have, vpl, spl))
+
+
+def write_pages(pool, page, off, value):
+    """``pool[page, off] = value``: pool (P, ps, N, D), page and off index
+    tensors of one shape, value (*that shape, N, D).  Under a mesh every
+    rank writes its kv heads of every row (the page axes are never
+    sharded)."""
+    if not _local.is_dtensor(pool):
+        pool[page, off] = _local.full(value).to(pool.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, have = pool.device_mesh, tuple(pool.placements)
+    vpl = _local.follow(have, {2: Shard(value.dim() - 2)})
+    rep = (Replicate(),) * mesh.ndim
+
+    def write(p, pg, o, v):
+        p[pg, o] = v.to(p.dtype)
+
+    _local.run_local(write, mesh, None, (pool, page, off, value),
+                     (have, rep, rep, vpl))
+
+
+def _kernel_layout(mesh, cache_leaf, spec_axes):
+    """Placements a decode kernel takes a cache or pool at: the rule-
+    resolved ``spec_axes`` (whole kv-head groups: the kv-head dimension
+    sharded only where the kv heads divide the axis; the sequence never),
+    except on a mesh axis of size one, where a DTensor leaf's own placement
+    stands (it places nothing)."""
+    want = placements(logical_to_spec(spec_axes, cache_leaf.shape, mesh),
+                      mesh)
+    if not _local.is_dtensor(cache_leaf):
+        return want
+    have = tuple(cache_leaf.placements)
+    return tuple(h if mesh.size(i) == 1 else w
+                 for i, (h, w) in enumerate(zip(have, want)))
 
 
 def decode_positions(rope: str, pos):
@@ -102,7 +225,23 @@ def _attend_chunk(q, k, v, q_pos, k_pos, cfg: AttnConfig):
 
 def attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
     """Exact attention, chunked over queries.  q: (B, S, H, D), k/v
-    (B, T, N, D)."""
+    (B, T, N, D).  Under a mesh on every rank's batch rows and whole
+    kv-head groups (as k is placed; the sequence gathered), autograd
+    included."""
+    mesh = _local.mesh_of(q, k, v)
+    if mesh is None:
+        return _attend_full(q, k, v, cfg, q_offset)
+    pl = _local.keep_shards(k, mesh, (0, 2))
+
+    def local(ql, kl, vl):
+        sub = dataclasses.replace(cfg, num_heads=ql.shape[2],
+                                  kv_heads=kl.shape[2])
+        return _attend_full(ql, kl, vl, sub, q_offset)
+
+    return _local.run_local(local, mesh, pl, (q, k, v), (pl, pl, pl))
+
+
+def _attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
     b, s, h, d = q.shape
     t = k.shape[1]
     n, g = cfg.kv_heads, cfg.q_groups
@@ -141,6 +280,18 @@ def init_cache(cfg: AttnConfig, batch, max_len, *, dtype, device, stack=None):
         shape = (stack, *shape)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _pad_seq(t, n):
+    """``t`` (B, S, N, D) zero-padded by ``n`` positions at the end of S;
+    under a mesh on every rank's shards (the sequence gathered): DTensor's
+    ``pad`` fails to plan its redistribution on torch 2.11."""
+    pad = lambda u: torch.nn.functional.pad(u, (0, 0, 0, 0, 0, n))  # noqa: E731
+    mesh = _local.mesh_of(t)
+    if mesh is None:
+        return pad(t)
+    pl = _local.keep_shards(t, mesh, (0, 2, 3))
+    return _local.run_local(pad, mesh, pl, (t,), (pl,))
 
 
 def prefill(params, cfg: AttnConfig, x, positions, max_len, lengths=None):
@@ -187,10 +338,11 @@ def prefill(params, cfg: AttnConfig, x, positions, max_len, lengths=None):
         cache = {"k": torch.roll(k_last, shift, dims=1),
                  "v": torch.roll(v_last, shift, dims=1)}
     else:
-        pad = (0, 0, 0, 0, 0, max_len - s_len)
-        cache = {"k": torch.nn.functional.pad(k, pad),
-                 "v": torch.nn.functional.pad(v, pad)}
-    return y, cache
+        cache = {"k": _pad_seq(k, max_len - s_len),
+                 "v": _pad_seq(v, max_len - s_len)}
+    cache = {kk: constrain(vv, ("batch", "kv_seq", "kv_heads", None))
+             for kk, vv in cache.items()}
+    return constrain(y, ("batch", None, "embed_act")), cache
 
 
 def decode_step(params, cfg: AttnConfig, cache, x, pos, positions=None):
@@ -213,17 +365,70 @@ def decode_step(params, cfg: AttnConfig, cache, x, pos, positions=None):
     q, k, v = _project_qkv(params, cfg, x, positions)
     t = cache["k"].shape[1]
     ring = cfg.ring_cache and cfg.window is not None and t <= cfg.window
-    slot = (pos % t if ring else pos).long()
-    rows = torch.arange(b, device=x.device)
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-    qg = q[:, 0].reshape(b, cfg.kv_heads, cfg.q_groups,
-                         cfg.head_dim).contiguous()
-    out = ops.swa_decode_attn(qg, cache["k"], cache["v"], pos,
-                              window=cfg.window, ring=ring)
+    slot = pos % t if ring else pos
+    write_slots(cache["k"], k[:, 0], slot)
+    write_slots(cache["v"], v[:, 0], slot)
+    out = _dense_attention(q[:, 0], cache["k"], cache["v"], pos,
+                           window=cfg.window, ring=ring)
     out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
-    return y, cache
+    return constrain(y, ("batch", None, "embed_act")), cache
+
+
+def _grouped(attend):
+    """``attend(qg, kv, ...)`` on q (B, H, D): the heads grouped by kv head
+    into (B, N, G, D) (N from the cache's kv-head dimension), the output
+    back in (B, H, D)."""
+
+    def run(q, k, *rest):
+        b, h, d = q.shape
+        n = k.shape[2]
+        qg = q.reshape(b, n, h // n, d).contiguous()
+        return attend(qg, k, *rest).reshape(b, h, d)
+
+    return run
+
+
+def _dense_attention(q, k_cache, v_cache, pos, *, window, ring):
+    """``ops.swa_decode_attn`` for q (B, H, D) -> (B, H, D); under a mesh on
+    every rank's batch rows and whole kv-head groups (q's heads sharded
+    with the cache's kv heads)."""
+    attend = _grouped(lambda qg, k, v, p: ops.swa_decode_attn(
+        qg, k, v, p, window=window, ring=ring))
+    mesh = _local.mesh_of(q, k_cache)
+    if mesh is None:
+        return attend(q, k_cache, v_cache, pos)
+    from torch.distributed.tensor import Shard
+    kpl = _kernel_layout(mesh, k_cache, ("batch", None, "kv_heads", None))
+    qpl = _local.follow(kpl, {0: Shard(0), 2: Shard(1)})
+    ppl = _local.follow(kpl, {0: Shard(0)})
+    pos = torch.as_tensor(pos, dtype=torch.int32,
+                          device=q.device).expand(q.shape[0])
+    return _local.run_local(attend, mesh, qpl, (q, k_cache, v_cache, pos),
+                            (qpl, kpl, kpl, ppl))
+
+
+def _paged_attention(q, k_pool, v_pool, pt, pos, *, window):
+    """``ops.paged_decode_attn`` for q (B, H, D) -> (B, H, D); under a mesh
+    on every rank's whole kv-head groups and, where the pool is replicated
+    over the batch's data axes, its batch rows."""
+    attend = _grouped(lambda qg, k, v, t, p: ops.paged_decode_attn(
+        qg, k, v, t, p, window=window))
+    mesh = _local.mesh_of(q, k_pool)
+    if mesh is None:
+        return attend(q, k_pool, v_pool, pt, pos)
+    from torch.distributed.tensor import Replicate, Shard
+    kpl = _kernel_layout(mesh, k_pool, (None, None, "kv_heads", None))
+    bspec = logical_to_spec(("batch",), (q.shape[0],), mesh)[0]
+    baxes = (bspec,) if isinstance(bspec, str) else (bspec or ())
+    names = mesh.mesh_dim_names
+    qpl = tuple(Shard(1) if p == Shard(2) else
+                Shard(0) if p == Replicate() and names[i] in baxes
+                and mesh.size(i) > 1 else Replicate()
+                for i, p in enumerate(kpl))
+    bpl = _local.follow(qpl, {0: Shard(0)})
+    return _local.run_local(attend, mesh, qpl, (q, k_pool, v_pool, pt, pos),
+                            (qpl, kpl, kpl, bpl, bpl))
 
 
 def init_paged_cache(cfg: AttnConfig, num_pages, page_size, *, dtype, device,
@@ -262,8 +467,8 @@ def paged_prefill(params, cfg: AttnConfig, x, positions, pool, pt, lengths,
     cols = (apos // page_size).clamp(max=pt.shape[1] - 1)
     page = torch.where(valid, pt.long()[:, cols], 0)
     off = (apos % page_size)[None, :].expand(b, s_len)
-    pool["k"][page, off] = k.to(pool["k"].dtype)
-    pool["v"][page, off] = v.to(pool["v"].dtype)
+    write_pages(pool["k"], page, off, k)
+    write_pages(pool["v"], page, off, v)
     if n_prefix_pages:
         def gather(p):
             g = p[pt[:, :n_prefix_pages].long()]           # (B, npp, ps, N, D)
@@ -275,7 +480,7 @@ def paged_prefill(params, cfg: AttnConfig, x, positions, pool, pt, lengths,
     else:
         out = attend_full(q, k, v, cfg)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
-    return y, pool
+    return constrain(y, ("batch", None, "embed_act")), pool
 
 
 def paged_decode_step(params, cfg: AttnConfig, pool, pt, x, pos,
@@ -294,12 +499,10 @@ def paged_decode_step(params, cfg: AttnConfig, pool, pt, x, pos,
     if active is not None:
         page = torch.where(active, page, 0)
     off = (pos % page_size).long()
-    pool["k"][page, off] = k[:, 0].to(pool["k"].dtype)
-    pool["v"][page, off] = v[:, 0].to(pool["v"].dtype)
-    qg = q[:, 0].reshape(b, cfg.kv_heads, cfg.q_groups,
-                         cfg.head_dim).contiguous()
-    out = ops.paged_decode_attn(qg, pool["k"], pool["v"], pt, pos,
-                                window=cfg.window)
+    write_pages(pool["k"], page, off, k[:, 0])
+    write_pages(pool["v"], page, off, v[:, 0])
+    out = _paged_attention(q[:, 0], pool["k"], pool["v"], pt, pos,
+                           window=cfg.window)
     out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
-    return y, pool
+    return constrain(y, ("batch", None, "embed_act")), pool

@@ -3,6 +3,10 @@
 
 Parameters keep the JAX layouts (``dense`` weights are (in, out)); weights
 are cast to the activation dtype at use, as ``.astype(x.dtype)`` does there.
+Where a JAX ``*_init`` returns ``(params, specs)``, the port's init returns
+the parameters and a ``*_specs`` function beside it returns the specs: the
+same tree with each leaf a tuple of logical axis names
+(``repro_torch.sharding.rules``).
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import local as _local
 
 # erf(+-2/sqrt(2)): the uniform range whose inverse-CDF lands in [-2, 2].
 _TRUNC_LO = math.erf(-2.0 / math.sqrt(2.0))
@@ -43,10 +49,36 @@ def trunc_normal(shape, std, dtype, device, generator):
     """``std * N(0, 1)`` truncated to [-2, 2], drawn in f32 then cast (the
     JAX ``_trunc_normal``; bits differ, the distribution does not).  A
     tensor of more than ``DRAW_BYTES`` of f32 is drawn in pieces along its
-    leading axes, in order, from the same generator."""
+    leading axes, in order, from the same generator.  On the ``meta``
+    device (shapes only, the dry-run's parameters) nothing is drawn."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    _fill(out, std, generator)
+    if out.device.type != "meta":
+        _fill(out, std, generator)
     return out
+
+
+def stacked(specs):
+    """A spec tree with the "layers" axis prepended to every leaf (the
+    parameters of a stacked layer axis)."""
+    if isinstance(specs, dict):
+        return {k: stacked(v) for k, v in specs.items()}
+    return ("layers", *specs)
+
+
+def dense_specs(in_axis="embed", out_axis="mlp", use_bias=False):
+    """Specs of a ``dense`` layer's ``w`` (in, out) [and ``b`` (out,)]."""
+    s = {"w": (in_axis, out_axis)}
+    if use_bias:
+        s["b"] = (out_axis,)
+    return s
+
+
+def norm_specs(norm="rmsnorm"):
+    """Specs of an RMSNorm (``scale``) or a LayerNorm (``scale``, ``bias``)."""
+    s = {"scale": ("norm",)}
+    if norm == "layernorm":
+        s["bias"] = ("norm",)
+    return s
 
 
 def dense(params, x):
@@ -57,7 +89,42 @@ def dense(params, x):
 
 
 def embedding(params, ids):
-    return params["table"][ids.long()]
+    """``table[ids]``.  Under a mesh a vocabulary-parallel lookup (each rank
+    looks up the ids in its block of the vocabulary, zero elsewhere, and
+    the blocks' partial sums add up), run on the local shards: DTensor's
+    own index and embedding-backward strategies fail on a batch sharded
+    over two mesh axes and on a vocabulary-sharded backward."""
+    table = params["table"]
+    mesh = _local.mesh_of(table, ids)
+    if mesh is None:
+        return table[ids.long()]
+    return _vocab_parallel_lookup(table, ids, mesh)
+
+
+def _vocab_parallel_lookup(table, ids, mesh):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.sharding.rules import logical_to_spec, placements
+    tpl = placements(logical_to_spec(("vocab", None), table.shape, mesh),
+                     mesh)
+    ipl = placements(logical_to_spec(("batch",) + (None,) * (ids.dim() - 1),
+                                     ids.shape, mesh), mesh)
+    ipl = tuple(Replicate() if t.is_shard() else p for t, p in zip(tpl, ipl))
+    out = tuple(Shard(0) if i.is_shard() else Partial() if t.is_shard()
+                else Replicate() for t, i in zip(tpl, ipl))
+    # a rank's table gradient covers its own batch rows: summed over them
+    grad = tuple(Shard(0) if t.is_shard() else Partial() if i.is_shard()
+                 else Replicate() for t, i in zip(tpl, ipl))
+    rows = table.shape[0] // math.prod(
+        mesh.size(k) for k, t in enumerate(tpl) if t.is_shard())
+    off = _local.shard_offset(mesh, tpl, 0, rows)
+
+    def look(t, i):
+        j = i.long() - off
+        ok = (j >= 0) & (j < t.shape[0])
+        return t[j.clamp(0, t.shape[0] - 1)] * ok[..., None].to(t.dtype)
+
+    return _local.run_local(look, mesh, out, (table, ids), (tpl, ipl),
+                            (grad, ipl))
 
 
 def rmsnorm(params, x, eps=1e-6):
@@ -87,10 +154,29 @@ def conv1d_depthwise_init(width, channels, *, dtype, device, generator,
                               generator)}
 
 
+def conv1d_depthwise_specs():
+    return {"w": ("conv", "rnn")}
+
+
 def conv1d_depthwise(params, x):
     """x: (B, S, C) causal depthwise conv, left-padded; the taps are summed
-    in the JAX function's order."""
+    in the JAX function's order.  Under a mesh on every rank's batch rows
+    and channels (the sequence gathered), autograd included: DTensor's
+    ``pad`` fails to plan its redistribution on torch 2.11."""
     w = params["w"].to(x.dtype)  # (K, C)
+    mesh = _local.mesh_of(x, w)
+    if mesh is None:
+        return _conv1d(w, x)
+    from torch.distributed.tensor import Partial, Shard
+    xpl = _local.keep_shards(x, mesh, (0, 2))
+    wpl = _local.follow(xpl, {2: Shard(1)})
+    # a rank's weight gradient covers its batch rows: summed over them
+    wgrad = tuple(Partial() if p == Shard(0) else q for p, q in zip(xpl, wpl))
+    return _local.run_local(_conv1d, mesh, xpl, (w, x), (wpl, xpl),
+                            (wgrad, xpl))
+
+
+def _conv1d(w, x):
     k = w.shape[0]
     pad = F.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros_like(x)

@@ -22,6 +22,8 @@ import math
 import torch
 
 from repro_torch.nn import layers as L
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.rules import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +55,14 @@ def init(cfg: MoEConfig, generator, device, *, stack=None,
             "w_down": draw(sh(e, f, d), std_out, dtype)}
 
 
+def specs(cfg: MoEConfig):
+    """Logical axes of the MoE parameters: experts on "experts"."""
+    return {"router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "expert_mlp"),
+            "w_up": ("experts", "embed", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "embed")}
+
+
 def _capacity(cfg: MoEConfig, t: int) -> int:
     c = math.ceil(t * cfg.top_k * cfg.capacity_factor / cfg.num_experts)
     return max(1, min(c, t))
@@ -67,13 +77,52 @@ def group_size(cfg: MoEConfig, n: int) -> int:
     return t
 
 
+def _ffn(x_disp, w_gate, w_up, w_down):
+    gate = torch.einsum("gecd,edf->gecf", x_disp, w_gate)
+    up = torch.einsum("gecd,edf->gecf", x_disp, w_up)
+    h = constrain(L.swiglu(gate, up), ("groups", "experts", None, None))
+    return torch.einsum("gecf,efd->gecd", h, w_down)
+
+
+def _experts(x_disp, w_gate, w_up, w_down):
+    """The expert SwiGLU on the dispatched tokens (G, E, C, d).  Under a
+    mesh every rank runs its experts on its groups (as ``x_disp`` is
+    placed, the weights gathered over their FSDP axis), autograd included:
+    the expert products are independent per (group, expert), and DTensor's
+    own einsum here views a permuted local shard it cannot view."""
+    mesh = _local.mesh_of(x_disp, w_gate)
+    if mesh is None:
+        return _ffn(x_disp, w_gate, w_up, w_down)
+    from torch.distributed.tensor import Partial, Shard
+    xpl = _local.keep_shards(x_disp, mesh, (0, 1))
+    wpl = _local.follow(xpl, {1: Shard(0)})
+    # a rank's weight gradient covers its groups only: summed over groups
+    wgrad = tuple(Partial() if p == Shard(0) else w
+                  for p, w in zip(xpl, wpl))
+    return _local.run_local(_ffn, mesh, xpl, (x_disp, w_gate, w_up, w_down),
+                            (xpl, wpl, wpl, wpl), (xpl, wgrad, wgrad, wgrad))
+
+
+def _combine(combine, y_disp):
+    """``einsum("gtec,gecd->gtd")``: the experts' outputs back to their
+    tokens.  Under a mesh every rank combines its groups from every expert
+    (the experts gathered): DTensor cannot flatten the experts-sharded
+    operands of this contraction on torch 2.11."""
+    fn = lambda c, y: torch.einsum("gtec,gecd->gtd", c, y)  # noqa: E731
+    mesh = _local.mesh_of(combine, y_disp)
+    if mesh is None:
+        return fn(combine, y_disp)
+    pl = _local.keep_shards(y_disp, mesh, (0,))
+    return _local.run_local(fn, mesh, pl, (combine, y_disp), (pl, pl))
+
+
 def forward(params, cfg: MoEConfig, x):
     """x: (B, S, D) -> (y (B, S, D), aux_loss f32 scalar)."""
     b, s, d = x.shape
     n = b * s
     t = group_size(cfg, n)
     g = n // t
-    xt = x.reshape(g, t, d)
+    xt = constrain(_local.reshape(x, g, t, d), ("groups", None, "embed_act"))
 
     logits = torch.einsum("gtd,de->gte", xt.float(), params["router"].float())
     probs = torch.softmax(logits, dim=-1)                          # (G,T,E)
@@ -99,16 +148,19 @@ def forward(params, cfg: MoEConfig, x):
         d_i = slot * keep[..., None]
         dispatch = dispatch + d_i.to(x.dtype)
         combine = combine + d_i * gate_vals[:, :, i][:, :, None, None]
+    dispatch = constrain(dispatch, ("groups", None, "experts", None))
+    combine = constrain(combine, ("groups", None, "experts", None))
 
     x_disp = torch.einsum("gtec,gtd->gecd", dispatch, xt)         # (G,E,C,D)
-    gate = torch.einsum("gecd,edf->gecf", x_disp, params["w_gate"].to(x.dtype))
-    up = torch.einsum("gecd,edf->gecf", x_disp, params["w_up"].to(x.dtype))
-    h = L.swiglu(gate, up)
-    y_disp = torch.einsum("gecf,efd->gecd", h, params["w_down"].to(x.dtype))
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), y_disp)
+    x_disp = constrain(x_disp, ("groups", "experts", None, "embed_act"))
+    y_disp = _experts(x_disp, params["w_gate"].to(x.dtype),
+                      params["w_up"].to(x.dtype),
+                      params["w_down"].to(x.dtype))
+    y = constrain(_combine(combine.to(x.dtype), y_disp),
+                  ("groups", None, "embed_act"))
 
     # Switch load-balance loss: E * sum_e f_e * P_e.
     f = (expert_idx[:, :, 0, None] == experts).float().mean(dim=(0, 1))
     p_mean = probs.mean(dim=(0, 1))
     aux = e * torch.sum(f * p_mean)
-    return y.reshape(b, s, d), aux
+    return _local.reshape(y, b, s, d), aux

@@ -26,6 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.nn import layers as L
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.rules import constrain, logical_to_spec, placements
 
 _C = 8.0
 _MAX_SQRT = 1e-6
@@ -66,15 +68,75 @@ def init(cfg: RGLRUConfig, generator, device, *, stack=None,
     }
 
 
-def _gates(params, xr):
-    """xr: (..., d_rnn) post-conv recurrent-branch input -> (a, b), f32."""
-    xf = xr.float()
-    r = torch.sigmoid(xf @ params["w_a"].float() + params["b_a"].float())
-    i = torch.sigmoid(xf @ params["w_x"].float() + params["b_x"].float())
-    log_a = _C * r * F.logsigmoid(params["lam"].float())
+def specs(cfg: RGLRUConfig):
+    """Logical axes of the RG-LRU parameters: the recurrent width is
+    "rnn"."""
+    return {"w_in_x": ("embed", "rnn"), "w_in_gate": ("embed", "rnn"),
+            "conv": L.conv1d_depthwise_specs(), "w_a": ("rnn", "rnn"),
+            "b_a": ("rnn",), "w_x": ("rnn", "rnn"), "b_x": ("rnn",),
+            "lam": ("rnn",), "w_out": ("rnn", "embed")}
+
+
+def cache_specs():
+    return {"h": ("batch", "rnn"), "conv": ("batch", None, "rnn")}
+
+
+_GATE_KEYS = ("w_a", "b_a", "w_x", "b_x", "lam")
+
+
+def _gate_math(xf, w_a, b_a, w_x, b_x, lam, x_own):
+    """(a, b) for the output channels of ``w_a``/``w_x``: ``x_own`` is xf
+    restricted to them."""
+    r = torch.sigmoid(xf @ w_a.float() + b_a.float())
+    i = torch.sigmoid(xf @ w_x.float() + b_x.float())
+    log_a = _C * r * F.logsigmoid(lam.float())
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.square(a), min=_MAX_SQRT))
-    return a, mult * (i * xf)
+    return a, mult * (i * x_own)
+
+
+def _gates(params, xr):
+    """xr: (..., d_rnn) post-conv recurrent-branch input -> (a, b), f32.
+    Under a mesh every rank computes its batch rows' gates for its block of
+    channels (the "rnn" rule's; the input gathered over the channels,
+    column-parallel), autograd included: DTensor has no strategy for
+    ``aten.log_sigmoid_backward`` and, on torch 2.11, cannot turn the
+    row-sharded product's shards into the partial sums the bias add
+    needs."""
+    xf = xr.float()
+    weights = [params[k] for k in _GATE_KEYS]
+    mesh = _local.mesh_of(xf, *weights)
+    if mesh is None:
+        return _gate_math(xf, *weights, xf)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    d = xf.shape[-1]
+    cols = placements(logical_to_spec(("rnn",), (d,), mesh), mesh)
+    have = _local.placements_of(xf, mesh)
+    rows = tuple(Shard(0) if p == Shard(0) and not c.is_shard()
+                 else Replicate() for p, c in zip(have, cols))
+    last = xf.dim() - 1
+    out = tuple(Shard(last) if c.is_shard() else r
+                for c, r in zip(cols, rows))
+    wpl = _local.follow(cols, {0: Shard(1)})
+    vpl = cols
+    # a rank's gradients: the input's summed over the channel blocks, the
+    # weights' over the batch rows
+    xgrad = tuple(Partial() if c.is_shard() else r
+                  for c, r in zip(cols, rows))
+    wgrad = tuple(Partial() if r.is_shard() else w
+                  for r, w in zip(rows, wpl))
+    vgrad = tuple(Partial() if r.is_shard() else v
+                  for r, v in zip(rows, vpl))
+    n = d // math.prod(mesh.size(i) for i, c in enumerate(cols)
+                       if c.is_shard())
+    off = _local.shard_offset(mesh, out, last, n)
+
+    def local(x, w_a, b_a, w_x, b_x, lam):
+        return _gate_math(x, w_a, b_a, w_x, b_x, lam, x[..., off:off + n])
+
+    return _local.run_local(local, mesh, (out, out), (xf, *weights),
+                            (rows, wpl, vpl, wpl, vpl, vpl),
+                            (xgrad, wgrad, vgrad, wgrad, vgrad, vgrad))
 
 
 def rglru_scan_reference(a, b, h0=None):
@@ -94,15 +156,28 @@ def rglru_scan_reference(a, b, h0=None):
     return b
 
 
+def _scan_local(scan, a, b):
+    """``scan(a, b) -> h``; under a mesh on every rank's batch rows and
+    channels (the recurrence is independent across both), as ``a`` is
+    placed (its sequence, if sharded, gathered)."""
+    mesh = _local.mesh_of(a, b)
+    if mesh is None:
+        return scan(a, b)
+    pl = _local.keep_shards(a, mesh, (0, 2))
+    return _local.run_local(scan, mesh, pl, (a, b), (pl, pl))
+
+
 def forward(params, cfg: RGLRUConfig, x, *, use_kernel=False,
             return_cache=False):
     """x: (B, S, D) -> (B, S, D) [, cache]."""
     xr_pre = x @ params["w_in_x"].to(x.dtype)
     gate = L.gelu(x @ params["w_in_gate"].to(x.dtype))
+    xr_pre = constrain(xr_pre, ("batch", None, "rnn"))
     xr = L.conv1d_depthwise(params["conv"], xr_pre)
     a, b = _gates(params, xr)
-    h = ops.rglru(a, b) if use_kernel else rglru_scan_reference(a, b)
+    h = _scan_local(ops.rglru if use_kernel else rglru_scan_reference, a, b)
     y = (h.to(x.dtype) * gate) @ params["w_out"].to(x.dtype)
+    y = constrain(y, ("batch", None, "embed_act"))
     if return_cache:
         kw = cfg.conv_width - 1
         cache = {"h": h[:, -1, :].float(),
@@ -134,4 +209,5 @@ def decode_step(params, cfg: RGLRUConfig, cache, x):
     a, b = _gates(params, xr)
     h = a * cache["h"] + b
     y = ((h.to(x.dtype) * gate) @ params["w_out"].to(x.dtype))[:, None, :]
-    return y, {"h": h, "conv": new_conv}
+    return constrain(y, ("batch", None, "embed_act")), {"h": h,
+                                                         "conv": new_conv}

@@ -45,8 +45,7 @@ def apply_mrope(x, positions, sections=(16, 24, 24), theta: float = 10000.0):
         raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
                          f"head_dim / 2 = {half}")
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)        # (half,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))                   # (half,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)    # (half,)
     pos = positions.float()[:, sec_id, :]                          # (B, half, S)
     return _rotate(x, pos.transpose(1, 2) * freqs)

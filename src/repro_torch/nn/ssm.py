@@ -8,7 +8,8 @@ chunked reference in plain PyTorch, which autograd differentiates); with
 :func:`repro_torch.kernels.ops.ssd`: the hand-written ``ssd`` kernel on a
 CUDA tensor, the same reference on a CPU one.  ``decode_step`` is one
 token of the same recurrence in plain tensor code.  The JAX function's
-sharding constraints have no counterpart here.
+logical-axis constraints are kept (``constrain``, a no-op without an
+active mesh).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd import chunk_size
 from repro_torch.nn import layers as L
+from repro_torch.sharding import local as _local
+from repro_torch.sharding.rules import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +44,20 @@ class SSDConfig:
     @property
     def num_heads(self):
         return self.d_inner // self.head_dim
+
+
+def specs(cfg: SSDConfig):
+    """Logical axes of the SSD parameters: the inner width is "rnn"."""
+    return {"in_proj": ("embed", "rnn"), "conv": L.conv1d_depthwise_specs(),
+            "A_log": ("rnn",), "D": ("rnn",), "dt_bias": ("rnn",),
+            "norm": ("rnn",), "out_proj": ("rnn", "embed")}
+
+
+def cache_specs():
+    return {"ssm": ("batch", "rnn", None, None),
+            "conv_x": ("batch", None, "rnn"),
+            "conv_b": ("batch", None, None),
+            "conv_c": ("batch", None, None)}
 
 
 def softplus(x):
@@ -150,32 +167,40 @@ def forward(params, cfg: SSDConfig, x, *, use_kernel=False,
     di = cfg.d_inner
     (wz, wx, wB, wC, wdt), (cwx, cwB, cwC) = _split_in_proj(params, cfg,
                                                            x.dtype)
-    z = x @ wz
-    xin_pre = x @ wx
-    B_pre = x @ wB
-    C_pre = x @ wC
-    dt = x @ wdt
+    z = constrain(x @ wz, ("batch", None, "rnn"))
+    xin_pre = constrain(x @ wx, ("batch", None, "rnn"))
+    B_pre = constrain(x @ wB, ("batch", None, None))
+    C_pre = constrain(x @ wC, ("batch", None, None))
+    dt = constrain(x @ wdt, ("batch", None, None))
     xin = F.silu(L.conv1d_depthwise(cwx, xin_pre))
     B = F.silu(L.conv1d_depthwise(cwB, B_pre))
     C = F.silu(L.conv1d_depthwise(cwC, C_pre))
+    xin = constrain(xin, ("batch", None, "rnn"))
 
     h = cfg.num_heads
-    xh = xin.reshape(b, s, h, cfg.head_dim)
-    Bh = B.reshape(b, s, cfg.ngroups, cfg.d_state)
-    Ch = C.reshape(b, s, cfg.ngroups, cfg.d_state)
+    xh = constrain(xin.reshape(b, s, h, cfg.head_dim),
+                   ("batch", None, "rnn", None))
+    Bh = constrain(B.reshape(b, s, cfg.ngroups, cfg.d_state),
+                   ("batch", None, None, None))
+    Ch = constrain(C.reshape(b, s, cfg.ngroups, cfg.d_state),
+                   ("batch", None, None, None))
     A = -torch.exp(params["A_log"].float())
-    dtp = softplus(dt.float() + params["dt_bias"].float())
+    dtp = constrain(softplus(dt.float() + params["dt_bias"].float()),
+                    ("batch", None, "rnn"))
 
     if use_kernel:
-        y, final = ops.ssd(xh, dtp, A, Bh, Ch, cfg.chunk)
+        scan = lambda *a: ops.ssd(*a, cfg.chunk)  # noqa: E731
     else:
-        y, final = ssd_reference(xh.float(), dtp, A, Bh.float(), Ch.float(),
-                                 chunk_size(cfg.chunk, s))
+        def scan(xh, dtp, A, Bh, Ch):
+            return ssd_reference(xh.float(), dtp, A, Bh.float(), Ch.float(),
+                                 chunk_size(cfg.chunk, xh.shape[1]))
+    y, final = _scan_local(scan, xh, dtp, A, Bh, Ch)
     y = y.to(x.dtype) + xh * params["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, di)
     # Gated RMSNorm (Mamba-2 style): norm(y) * silu(z).
     y = L.rmsnorm({"scale": params["norm"]}, y * F.silu(z))
-    out = y @ params["out_proj"].to(x.dtype)
+    out = constrain(y @ params["out_proj"].to(x.dtype),
+                    ("batch", None, "embed_act"))
     if return_cache:
         kw = cfg.conv_width - 1
         cache = {"ssm": final.float(),
@@ -184,6 +209,31 @@ def forward(params, cfg: SSDConfig, x, *, use_kernel=False,
                  "conv_c": C_pre[:, s - kw:, :]}
         return out, cache
     return out
+
+
+def _scan_local(scan, xh, dtp, A, Bh, Ch):
+    """``scan(xh, dtp, A, Bh, Ch) -> (y, final)``; under a mesh on every
+    rank's batch rows and heads (the scan is independent across both), as
+    ``xh`` is placed (its sequence, if sharded, gathered), autograd
+    included."""
+    mesh = _local.mesh_of(xh, dtp, Bh, Ch)
+    if mesh is None:
+        return scan(xh, dtp, A, Bh, Ch)
+    from torch.distributed.tensor import Partial, Shard
+    have = _local.placements_of(xh, mesh)
+    xpl = _local.follow(have, {0: Shard(0), 2: Shard(2)})
+    bpl = _local.follow(have, {0: Shard(0)})
+    apl = _local.follow(have, {2: Shard(0)})
+    fpl = _local.follow(have, {0: Shard(0), 2: Shard(1)})
+    # a rank's gradients: A's summed over the batch rows, B's and C's (one
+    # group shared by every head) over the heads
+    agrad = tuple(Partial() if x == Shard(0) else a
+                  for x, a in zip(xpl, apl))
+    bgrad = tuple(Partial() if x == Shard(2) else b
+                  for x, b in zip(xpl, bpl))
+    return _local.run_local(scan, mesh, (xpl, fpl), (xh, dtp, A, Bh, Ch),
+                            (xpl, xpl, apl, bpl, bpl),
+                            (xpl, xpl, agrad, bgrad, bgrad))
 
 
 def init_cache(cfg: SSDConfig, batch, *, device, dtype=torch.float32,
@@ -202,6 +252,31 @@ def init_cache(cfg: SSDConfig, batch, *, device, dtype=torch.float32,
         "conv_b": torch.zeros(sh(batch, kw, gn), dtype=dtype, device=device),
         "conv_c": torch.zeros(sh(batch, kw, gn), dtype=dtype, device=device),
     }
+
+
+def _step(ssm, dtp, xh, Bh, Ch, A, D):
+    """One token of the recurrence: (new state, y) from the f32 state (B,
+    H, P, N), dt (B, H), x (B, H, P), B and C (B, H, N), A and D (H,)."""
+    decay = torch.exp(dtp * A[None, :])
+    hs = ssm * decay[:, :, None, None] + torch.einsum(
+        "bh,bhp,bhn->bhpn", dtp, xh, Bh)
+    y = torch.einsum("bhn,bhpn->bhp", Ch, hs)
+    return hs, y + xh * D[None, :, None]
+
+
+def _step_local(ssm, dtp, xh, Bh, Ch, A, D):
+    """:func:`_step`; under a mesh on every rank's batch rows and heads, as
+    the state is placed: DTensor cannot flatten this einsum's sharded heads
+    on torch 2.11."""
+    mesh = _local.mesh_of(ssm, xh)
+    if mesh is None:
+        return _step(ssm, dtp, xh, Bh, Ch, A, D)
+    from torch.distributed.tensor import Shard
+    spl = _local.keep_shards(ssm, mesh, (0, 1))
+    hpl = _local.follow(spl, {1: Shard(0)})
+    return _local.run_local(_step, mesh, (spl, spl),
+                            (ssm, dtp, xh, Bh, Ch, A, D),
+                            (spl, spl, spl, spl, spl, hpl, hpl))
 
 
 def decode_step(params, cfg: SSDConfig, cache, x):
@@ -230,12 +305,10 @@ def decode_step(params, cfg: SSDConfig, cache, x):
     A = -torch.exp(params["A_log"].float())
     dtp = softplus(dt.float() + params["dt_bias"].float())          # (B, H)
 
-    decay = torch.exp(dtp * A[None, :])
-    hs = cache["ssm"] * decay[:, :, None, None] + torch.einsum(
-        "bh,bhp,bhn->bhpn", dtp, xh, Bh)
-    y = torch.einsum("bhn,bhpn->bhp", Ch, hs)
-    y = y + xh * params["D"].float()[None, :, None]
+    hs, y = _step_local(cache["ssm"], dtp, xh, Bh, Ch, A,
+                        params["D"].float())
     y = y.reshape(b, di).to(x.dtype)
     y = L.rmsnorm({"scale": params["norm"]}, y * F.silu(z))
     out = (y @ params["out_proj"].to(x.dtype))[:, None, :]
-    return out, {"ssm": hs, "conv_x": ncx, "conv_b": ncb, "conv_c": ncc}
+    return (constrain(out, ("batch", None, "embed_act")),
+            {"ssm": hs, "conv_x": ncx, "conv_b": ncb, "conv_c": ncc})

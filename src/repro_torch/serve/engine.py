@@ -30,6 +30,8 @@ from repro_torch.models.transformer import (LMConfig, Transformer,
                                             attention_only)
 from repro_torch.serve.paged import (Admission, PageAllocator, TRASH_PAGE,
                                      pages_for)
+from repro_torch.sharding.local import full, inference, whole
+from repro_torch.sharding.rules import constrain, tree_map_axes
 
 
 def make_serve_step(cfg: LMConfig):
@@ -38,11 +40,12 @@ def make_serve_step(cfg: LMConfig):
     position) or (B,) (the engine's per-slot path); the cache is updated in
     place and returned."""
 
-    @torch.inference_mode()
+    @inference
     def step(params, cache, token, pos):
         logits, new_cache = Transformer.decode_step(cfg, params, cache, token,
                                                     pos)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        nxt = torch.argmax(whole(logits[:, -1, :]), dim=-1)
+        nxt = nxt.to(torch.int32)[:, None]
         return nxt, new_cache
 
     return step
@@ -51,10 +54,11 @@ def make_serve_step(cfg: LMConfig):
 def make_prefill_step(cfg: LMConfig, max_len):
     """Prompt -> (first greedy token (B, 1) int32, fresh dense caches)."""
 
-    @torch.inference_mode()
+    @inference
     def step(params, batch):
         logits, cache = Transformer.prefill(cfg, params, batch, max_len)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        nxt = torch.argmax(whole(logits[:, -1, :]), dim=-1)
+        nxt = nxt.to(torch.int32)[:, None]
         return nxt, cache
 
     return step
@@ -68,7 +72,7 @@ def make_sampler(sample: str = "greedy", temperature: float = 1.0,
     the engine's ``torch.Generator`` (other bits than ``jax.random``)."""
     if sample == "greedy":
         return lambda logits, generator: torch.argmax(
-            logits, dim=-1).to(torch.int32)
+            whole(logits), dim=-1).to(torch.int32)
     if sample != "topk":
         raise ValueError(f"unknown sampler {sample!r}; known: greedy, topk")
 
@@ -139,16 +143,27 @@ def make_admit_step(cfg: LMConfig, max_len: int, sampler, *, padded=True):
     return admit
 
 
+def _slot_state(slots, device):
+    """Idle slots' (tokens, pos, budget, active), placed by their logical
+    axes (the batch of slots)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return (constrain(torch.zeros((slots, 1), **i32), ("batch", None)),
+            constrain(torch.zeros((slots,), **i32), ("batch",)),
+            constrain(torch.zeros((slots,), **i32), ("batch",)),
+            constrain(torch.zeros((slots,), dtype=torch.bool, device=device),
+                      ("batch",)))
+
+
 def make_init_state(cfg: LMConfig, slots: int, max_len: int, device):
-    """Fresh dense slot state: zeroed caches and idle slots."""
+    """Fresh dense slot state: zeroed caches and idle slots, placed by the
+    same logical axes the admission and tick steps give them (caches by
+    ``Transformer.cache_specs``; no-ops without an active mesh)."""
 
     def init():
-        caches = Transformer.init_cache(cfg, slots, max_len, device=device)
-        i32 = dict(dtype=torch.int32, device=device)
-        tokens = torch.zeros((slots, 1), **i32)
-        pos = torch.zeros((slots,), **i32)
-        budget = torch.zeros((slots,), **i32)
-        active = torch.zeros((slots,), dtype=torch.bool, device=device)
+        caches = tree_map_axes(
+            lambda ax, c: constrain(c, ax), Transformer.cache_specs(cfg),
+            Transformer.init_cache(cfg, slots, max_len, device=device))
+        tokens, pos, budget, active = _slot_state(slots, device)
         return tokens, caches, pos, budget, active
 
     return init
@@ -233,14 +248,13 @@ def make_paged_init_state(cfg: LMConfig, slots: int, num_pages: int,
     slots."""
 
     def init():
-        caches = Transformer.init_paged_cache(cfg, num_pages, page_size,
-                                              device=device)
-        i32 = dict(dtype=torch.int32, device=device)
-        pt = torch.zeros((slots, pages_per_slot), **i32)
-        tokens = torch.zeros((slots, 1), **i32)
-        pos = torch.zeros((slots,), **i32)
-        budget = torch.zeros((slots,), **i32)
-        active = torch.zeros((slots,), dtype=torch.bool, device=device)
+        caches = tree_map_axes(
+            lambda ax, c: constrain(c, ax), Transformer.paged_cache_specs(cfg),
+            Transformer.init_paged_cache(cfg, num_pages, page_size,
+                                         device=device))
+        pt = constrain(torch.zeros((slots, pages_per_slot), dtype=torch.int32,
+                                   device=device), ("batch", None))
+        tokens, pos, budget, active = _slot_state(slots, device)
         return tokens, caches, pt, pos, budget, active
 
     return init
@@ -305,7 +319,7 @@ class ServeEngine:
             self._init_fn = make_init_state(cfg, slots, max_len, self.device)
         self.reset()
 
-    @torch.inference_mode()
+    @inference
     def reset(self):
         if self.paged:
             (self.tokens, self.caches, self.pt, self.pos, self.budget,
@@ -440,8 +454,8 @@ class ServeEngine:
     def _post_admit(self, group, first, done_now, now, length, log):
         """Pull (first, done) once, stamp the requests, finish the
         already-done slots."""
-        first_np, done_np = torch.stack(
-            [first, done_now.to(torch.int32)]).cpu().numpy()
+        first_np, done_np = full(torch.stack(
+            [first, done_now.to(torch.int32)])).cpu().numpy()
         t_wall = time.perf_counter()
         for slot, req in group:
             req.out.append(int(first_np[slot]))
@@ -551,7 +565,7 @@ class ServeEngine:
         finished): the stream cursor the live checkpoint records."""
         return self._queue_total - len(self._queue)
 
-    @torch.inference_mode()
+    @inference
     def tick(self):
         """One iteration of the serving loop: stamp newly eligible arrivals,
         admit them into free slots, run one decode tick over all slots
@@ -602,8 +616,8 @@ class ServeEngine:
                     params, self.caches, self.tokens, self.pos, self.budget,
                     self.active, self._generator)
             self.decode_ticks += 1
-            emitted_np, done_np = torch.stack(
-                [self.tokens[:, 0], done.to(torch.int32)]).cpu().numpy()
+            emitted_np, done_np = full(torch.stack(
+                [self.tokens[:, 0], done.to(torch.int32)])).cpu().numpy()
             t_wall = time.perf_counter()
             for s in range(self.slots):
                 req = self._host_active[s]
@@ -665,7 +679,7 @@ class ServeEngine:
                              for a in self._slot_adm]}
         return tree, meta
 
-    @torch.inference_mode()
+    @inference
     def restore(self, path, meta, requests):
         """Inverse of :meth:`carry` (in place, from the fused checkpoint at
         ``path``): ``requests`` must be the same arrival stream the saved
@@ -745,11 +759,18 @@ def simulate(cfg, params, requests, slots, max_len, mesh=None, log=print,
              **engine_kw):
     """Functional wrapper with the JAX package's ``simulate`` signature:
     build an engine, serve the request list, return the finished requests.
-    The port serves on one card, so ``mesh`` must be None (meshes are
-    slice 9)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "simulate(mesh=...) is not ported yet (ROADMAP.md queue 1, "
-            "slice 9: sharding); the port serves on one device")
-    return ServeEngine(cfg, params, slots=slots, max_len=max_len,
-                       **engine_kw).run(requests, log=log)
+    With a ``mesh`` (a ``DeviceMesh``) the engine is built and run inside
+    ``mesh_context(mesh)``: its slot state and caches are DTensors placed
+    by their logical axes, parameters the caller did not shard count as
+    replicated, and the decode kernels run on every rank's local shards.
+    What reaches the host (the emitted tokens) is whole on every rank."""
+    if mesh is None:
+        return ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                           **engine_kw).run(requests, log=log)
+    from repro_torch.launch.mesh import mesh_context
+    with mesh_context(mesh):
+        # built inside the mesh scope, so the slot state is placed as the
+        # steps place their outputs
+        engine = ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                             **engine_kw)
+        return engine.run(requests, log=log)

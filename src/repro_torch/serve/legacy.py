@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.transformer import Transformer
+from repro_torch.sharding.local import full, inference, whole
 from repro_torch.tree import tree_device, tree_map
 
 
@@ -42,21 +43,27 @@ def legacy_serve_step(cfg):
     def step(params, cache, token, pos):
         logits, new_cache = Transformer.decode_step(cfg, params, cache, token,
                                                     pos)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+        nxt = torch.argmax(whole(logits[:, -1, :]), dim=-1)
+        nxt = nxt.to(torch.int32)[:, None]
         return nxt, new_cache
 
     return step
 
 
-@torch.inference_mode()
 def simulate(cfg, params, requests, slots, max_len, mesh=None, log=print):
     """Slot-based continuous batching, one decode tick per step, on the
-    device ``params`` live on.  The port serves on one device, so ``mesh``
-    must be None (meshes are slice 9)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "legacy simulate(mesh=...) is not ported yet (ROADMAP.md queue 1, "
-            "slice 9: sharding); the port serves on one device")
+    device ``params`` live on; with a ``mesh`` (a ``DeviceMesh``) inside
+    ``mesh_context(mesh)``, as the JAX loop runs: its caches stay whole on
+    every rank, the activations are placed by their logical axes."""
+    if mesh is None:
+        return _simulate(cfg, params, requests, slots, max_len, log)
+    from repro_torch.launch.mesh import mesh_context
+    with mesh_context(mesh):
+        return _simulate(cfg, params, requests, slots, max_len, log)
+
+
+@inference
+def _simulate(cfg, params, requests, slots, max_len, log):
     device = tree_device(params)
     serve = legacy_serve_step(cfg)
     active = [None] * slots          # slot -> Request
@@ -75,11 +82,11 @@ def simulate(cfg, params, requests, slots, max_len, mesh=None, log=print):
         toks = torch.as_tensor(req.prompt, dtype=torch.int32,
                                device=device)[None, :]
         lg, c1 = Transformer.prefill(cfg, params, {"tokens": toks}, max_len)
-        nxt = int(torch.argmax(lg[0, -1]))
+        nxt = int(full(torch.argmax(whole(lg[0, -1]))))
 
         def put(batched, single):
             if slot < batched.shape[0]:
-                batched[slot] = single[0].to(batched.dtype)
+                batched[slot] = full(single[0]).to(batched.dtype)
             return batched
 
         tree_map(put, caches, c1)
@@ -103,6 +110,7 @@ def simulate(cfg, params, requests, slots, max_len, mesh=None, log=print):
         tokens, caches = serve(params, caches, tokens,
                                torch.full((slots,), ptick, dtype=torch.int32,
                                           device=device))
+        tokens = full(tokens)
         for s in range(slots):
             if active[s] is None:
                 continue

@@ -1512,3 +1512,40 @@ def test_live_checkpoint_on_card_resumes_bit_identical(cuda, tmp_path):
 def _tree_leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_meshed_serving_on_card_launches_the_kernels_through_local_map(
+        cuda, paged, monkeypatch):
+    """Granite SMOKE in f32 served through ``simulate(mesh=...)`` on a
+    one-rank NCCL mesh: the tokens of ``mesh=None``, every decode attention
+    through the hand-written kernel, called by ``local_map`` on the local
+    shards."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve import simulate
+    from repro_torch.sharding import local as sharding_local
+    cfg = registry.get_smoke_config("granite-3-2b")
+    params = Transformer.init(cfg, 0, device="cuda")
+    kw = dict(paged=True, page_size=8) if paged else {}
+    kernel = paged_decode if paged else swa_decode
+    stream = lambda: build_stream("poisson", 5, vocab=cfg.vocab_size,  # noqa: E731
+                                  seed=4, prompt_max=14, out_max=6)
+    engine = ServeEngine(cfg, params, slots=3, max_len=48, device="cuda",
+                         **kw)
+    want = engine.run(stream())
+    calls = []
+    run_local = sharding_local.run_local
+    monkeypatch.setattr(sharding_local, "run_local", lambda fn, *a, **k: (
+        calls.append(1), run_local(fn, *a, **k))[1])
+    mesh = make_test_mesh(device="cuda")
+    try:
+        kernel.launches = 0
+        got = simulate(cfg, params, stream(), 3, 48, mesh=mesh, log=None,
+                       device="cuda", **kw)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert [(r.rid, r.out) for r in got] == [(r.rid, r.out) for r in want]
+    assert kernel.launches == cfg.num_layers * engine.decode_ticks > 0
+    assert len(calls) >= kernel.launches

@@ -32,6 +32,7 @@ from repro.serve import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.interop import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh as port_test_mesh  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.nn import moe  # noqa: E402
 from repro_torch.serve import ServeEngine, build_stream  # noqa: E402
@@ -275,8 +276,14 @@ def test_serve_and_prefill_steps_match_jax(smoke):
     finished = simulate(cfg, params, reqs(), 2, 32, log=None, device="cpu")
     engine = ServeEngine(cfg, params, slots=2, max_len=32, device="cpu")
     assert [r.out for r in finished] == [r.out for r in engine.run(reqs())]
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        simulate(cfg, params, reqs(), 2, 32, mesh=object(), device="cpu")
+    # on a one-rank gloo mesh (slice 9): the same tokens
+    mesh = port_test_mesh(device="cpu")
+    try:
+        meshed = simulate(cfg, params, reqs(), 2, 32, mesh=mesh, log=None,
+                          device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+    assert [r.out for r in meshed] == [r.out for r in finished]
 
 
 def test_serve_decode_example_runs_each_moe_arch_on_cpu(capsys):

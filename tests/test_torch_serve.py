@@ -207,10 +207,11 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 def test_unported_paths_raise(tmp_path, capsys):
-    """What still raises: serving on a mesh (slice 9, sharding), padded
-    prefill on recurrent sub-blocks and an encoder-only engine (both as in
-    the JAX package).  The engines' carry/restore (slice 6) and the CLI's
-    --legacy loop, which raised until they were ported, now run."""
+    """What still raises: serving on something that is not a DeviceMesh,
+    padded prefill on recurrent sub-blocks and an encoder-only engine (both
+    as in the JAX package).  The engines' carry/restore (slice 6), the
+    CLI's --legacy loop and serving on a mesh (slice 9), which raised until
+    they were ported, now run (``tests/test_torch_mesh.py``)."""
     cfg = registry.get_smoke_config("granite-3-2b")
     params = Transformer.init(cfg, 0, device="cpu")
     for paged in (False, True):
@@ -227,7 +228,7 @@ def test_unported_paths_raise(tmp_path, capsys):
     assert len(finished) == 2
     assert "legacy on cpu" in capsys.readouterr().out
     for sim in (simulate, legacy_simulate):
-        with pytest.raises(NotImplementedError, match="slice 9"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             sim(cfg, params, [], 1, 16, mesh=object())
     hybrid = dataclasses.replace(cfg, block_pattern=("rglru", "attn"))
     with pytest.raises(ValueError, match="recurrent"):
