@@ -237,10 +237,31 @@ together; each prints its kernels' registers and spills), then:
               rates, bottleneck, peak GB a device against the card's 80 GB)
               and its seconds; checks the per-device parameter bytes
               (30,748,672 and 8,270,983,168) and ``param_count``;
-42. kernels   prints one JSON line per the port's kernel table (eight
-              kernels; the kd pair's launches include phases 29, 35 and
-              39's, the quant pair's phase 32's, ``swa_decode``'s phases
-              35, 38's legacy loop and 39's, ``paged_decode``'s 39's).
+42. mesh serve cli  ``launch.serve.main`` for Granite-3-2B ``--full`` at
+              phase 3's stream (bf16), dense and ``--paged``, unmeshed and
+              then on a one-rank NCCL mesh joined through ``env://`` as
+              ``torchrun`` sets it: tokens equal, each decode kernel
+              launched layers x decode ticks, all inside ``run_local``;
+43. mesh train cli  ``launch.train --full --arch granite-3-2b --method
+              bkd`` on that mesh (1 round of 2 steps a phase, batch 8 x
+              64): Phase-2 seconds beside phase 27's unmeshed, peak memory,
+              finite losses, the kd pair once a Phase-2 step
+              (``kd_stats_fwd`` inside ``run_local``, ``kd_grad_bwd`` from
+              the backward of the same per-rank calls); SMOKE parity
+              meshed vs unmeshed on the card (f32, TF32 off), bkd and
+              ``--transport int8``: every printed number within 2e-4;
+44. guard, lint   starts ``torchrun --nproc-per-node 1`` of each launch
+              CLI at SMOKE (both must exit 0); meanwhile serves phase 3's
+              stream on a warm Granite-3-2B engine again under the port's
+              ``trace_guard(max_compiles=0)`` (no new admission or tick
+              signature, no nvcc build, ``torch.compile`` frame or graph
+              capture) and runs the port's lint gate (``python -m
+              repro_torch.analysis``) on the card's host: exit 0;
+45. kernels   prints one JSON line per the port's kernel table (eight
+              kernels; the kd pair's launches include phases 29, 35, 39
+              and 43's, the quant pair's phase 32's, ``swa_decode``'s
+              phases 35, 38's legacy loop, 39's and 42's, ``paged_decode``'s
+              39's and 42's).
 
 Each phase's seconds are printed (``[time]``).
 
@@ -2458,8 +2479,8 @@ def phase_llm_phase2():
     5's f32 limit) on the first Phase-2 step's own inputs: 512 rows of
     Granite's padded vocabulary (49,408 columns, the 253 past 49,155 at
     -1e30), with buffer.  Then an A/B of the Phase-2 step, 'pallas' (the kd pair) against 'jnp'
-    (the plain loss), in turns on one set of weights.  Returns the pair's
-    launches in the driver run."""
+    (the plain loss), in turns on one set of weights.  Returns the
+    Phase-2 seconds ``launch.train`` printed, one a round of 3 steps."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     argv = ["--full", "--arch", "granite-3-2b", "--method", "bkd",
@@ -2503,7 +2524,7 @@ def phase_llm_phase2():
                  tau)
     del seen, y, s, t, b
     _llm_phase2_ab(cfg)
-    return launches["kd_stats_fwd"], launches["kd_grad_bwd"]
+    return p2
 
 
 def _llm_phase2_ab(cfg, pairs=3):
@@ -3618,6 +3639,301 @@ def phase_dryrun(procs):
               f"{arch} {shape}: roofline {rl}")
 
 
+# -- slice 9, part 2: the launch CLIs under a mesh, the guard and the lint ---
+
+# Phase 3's stream and engine as the serve CLI's arguments.
+SERVE_CLI_ARGV = ["--full", "--arch", "granite-3-2b", "--requests", "8",
+                  "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+                  "--prompt-max", "192", "--out-max", "32",
+                  "--shared-prefix", "32", "--page-size", str(PAGE),
+                  "--device", "cuda"]
+# The LLM driver's SMOKE parity runs, meshed against unmeshed.
+MESH_SMOKE_ARGV = ["--arch", "granite-3-2b", "--rounds", "2", "--edges", "2",
+                   "--steps-per-phase", "3", "--batch", "2", "--seq", "16",
+                   "--device", "cuda"]
+_NUMBER = re.compile(r"(loss|kd|domain)[=:] ?(-?\d+\.\d+)")
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """The environment ``torchrun --nproc-per-node 1`` gives its worker
+    (rank 0 of 1, a rendezvous on a free local port), so that a CLI run
+    in this process joins a one-rank NCCL group through ``env://``."""
+    import os
+    from repro_torch.launch.mesh import free_port
+    keys = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(keys)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def launches_through_run_local(counters):
+    """Yields a dict that counts, for each launch counter in ``counters``
+    ({name: kernel}), the launches made inside ``run_local`` calls, and
+    under "calls" the calls of each per-rank function (by qualified
+    name).  A kernel launched by the backward of a per-rank function runs
+    after its ``run_local`` call returned, from the autograd graph that
+    call made."""
+    from repro_torch.sharding import local as sharding_local
+    real = sharding_local.run_local
+    inside = {n: 0 for n in counters}
+    inside["calls"] = {}
+
+    def counted(fn, *a, **k):
+        name = fn.__qualname__
+        inside["calls"][name] = inside["calls"].get(name, 0) + 1
+        before = {n: c.launches for n, c in counters.items()}
+        out = real(fn, *a, **k)
+        for n, c in counters.items():
+            inside[n] += c.launches - before[n]
+        return out
+
+    sharding_local.run_local = counted
+    try:
+        yield inside
+    finally:
+        sharding_local.run_local = real
+
+
+def _serve_cli(argv, meshed):
+    """``launch.serve.main(argv)`` with its log kept out of the output,
+    meshed (a one-rank NCCL group joined through ``env://``) or not;
+    returns (finished, summary line, engine, decode kernel launches,
+    launches inside run_local, wall s)."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve as serve_cli
+    kernel = pd_mod.paged_decode if "--paged" in argv else swa_mod.swa_decode
+    engines = []
+    real_run = ServeEngine.run
+
+    def run(self, *a, **k):
+        engines.append(self)
+        return real_run(self, *a, **k)
+
+    buf = io.StringIO()
+    kernel.launches = 0
+    ServeEngine.run = run
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            if meshed:
+                stack.enter_context(torchrun_env())
+            inside = stack.enter_context(
+                launches_through_run_local({"k": kernel}))
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            finished = serve_cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        ServeEngine.run = real_run
+    wall = time.perf_counter() - t0
+    check(not dist.is_initialized(), "the serve CLI left its group behind")
+    line = [ln for ln in buf.getvalue().splitlines()
+            if ln.startswith("served ")]
+    return finished, line, engines[-1], kernel.launches, inside["k"], wall
+
+
+def phase_mesh_serve_cli():
+    """The serve CLI (``launch.serve.main``) for Granite-3-2B ``--full`` at
+    phase 3's stream, dense and ``--paged``: unmeshed, then on a one-rank
+    NCCL mesh joined through ``env://`` as ``torchrun`` sets it.  Tokens
+    equal; each decode kernel launched layers x decode ticks, all inside
+    ``run_local``.  Returns (paged_decode, swa_decode) launches of the
+    meshed runs."""
+    cfg = registry.get_config("granite-3-2b")
+    out = {}
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        argv = SERVE_CLI_ARGV + (["--paged"] if paged else [])
+        runs = {}
+        for meshed in (False, True):
+            name = "mesh" if meshed else "mesh=None"
+            fin, line, engine, launches, inside, wall = _serve_cli(argv,
+                                                                    meshed)
+            runs[name] = fin
+            want = cfg.num_layers * engine.decode_ticks
+            print(f"[mesh cli] serve {label} {name} ({wall:.1f}s with init): "
+                  f"{line[0] if line else line}; launches {launches} "
+                  f"({inside} inside run_local) = {cfg.num_layers} x "
+                  f"{engine.decode_ticks} ticks")
+            check(launches == want > 0,
+                  f"serve cli {label} {name}: {launches} launches, want "
+                  f"{want}")
+            check(inside == (launches if meshed else 0),
+                  f"serve cli {label} {name}: {inside} of {launches} "
+                  f"launches inside run_local")
+            check(len(line) == 1, f"serve cli {label}: summary {line}")
+            if meshed:
+                out[label] = launches
+        key = lambda rs: [(r.rid, r.out) for r in rs]  # noqa: E731
+        check(key(runs["mesh"]) == key(runs["mesh=None"]) and
+              len(runs["mesh"]) == 8,
+              f"serve cli {label}: meshed tokens differ from unmeshed")
+    return out["paged"], out["dense"]
+
+
+def _numbers(out):
+    return [(m.group(1), float(m.group(2))) for m in _NUMBER.finditer(out)]
+
+
+def phase_mesh_train_cli(unmeshed_phase2_s):
+    """``launch.train --full --arch granite-3-2b --method bkd`` on a
+    one-rank NCCL mesh joined through ``env://`` (bf16, AdamW, 1 round of
+    2 steps a phase, batch 8 x 64): the Phase-2 seconds as ``launch.train``
+    prints them beside phase 27's unmeshed (3 steps a round, so the first
+    step's warm-up weighs more in the meshed figure), peak memory, finite
+    losses, the kd pair once a Phase-2 step inside ``run_local``.  Then
+    SMOKE parity (f32, TF32 off), meshed against unmeshed on the card: bkd
+    and bkd with ``--transport int8``, every printed loss and the final
+    NLL within 2e-4.  Returns the pair's
+    launches in the full-width meshed run."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--full", "--arch", "granite-3-2b", "--method", "bkd",
+            "--device", "cuda", "--rounds", "1", "--edges", "2",
+            "--steps-per-phase", "2", "--batch", "8", "--seq", "64"]
+    pair = {n: KD_COUNTERS[n] for n in ("kd_stats_fwd", "kd_grad_bwd")}
+    t0 = time.perf_counter()
+    with torchrun_env(), launches_through_run_local(pair) as inside:
+        params, out, launches = _train(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del params
+    p2 = [float(m.group(3)) for m in _PHASE_S.finditer(out)
+          if m.group(3) is not None]
+    rows = inside["calls"].get("_mean_on_shards.<locals>.rows", 0)
+    print(f"[mesh cli] train granite-3-2b full width, one-rank mesh, 2 "
+          f"Phase-2 steps in a {wall:.1f}s run: phase 2 {p2} s for 2 "
+          f"steps meshed against {unmeshed_phase2_s} s a round of 3 steps "
+          f"unmeshed (phase 27); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; launches {launches}; "
+          f"kd_stats_fwd inside run_local {inside['kd_stats_fwd']}, "
+          f"kd_grad_bwd from the backward of {rows} per-rank loss calls")
+    check("mesh={'data': 1, 'model': 1}" in out, "train cli: no mesh line")
+    check(len(p2) == 1, f"train cli: Phase-2 line missing in {out!r}")
+    losses = [float(v) for v in re.findall(r"loss=(\S+)", out)]
+    check(len(losses) >= 3 and all(math.isfinite(v) for v in losses),
+          f"train cli: losses {losses}")
+    want = {"kd_stats_fwd": 2, "kd_grad_bwd": 2,
+            "kd_quant_stats_fwd": 0, "kd_quant_grad_bwd": 0}
+    check(launches == want and inside["kd_stats_fwd"] == 2 and rows == 2,
+          f"train cli: launches {launches}, inside run_local {inside}")
+    torch.cuda.empty_cache()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for extra in ([], ["--transport", "int8"]):
+            runs = {}
+            for meshed in (False, True):
+                with (torchrun_env() if meshed
+                      else contextlib.nullcontext()):
+                    with contextlib.redirect_stdout(io.StringIO()) as buf:
+                        train.main(MESH_SMOKE_ARGV + extra)
+                runs[meshed] = _numbers(buf.getvalue())
+            worst = max(abs(a[1] - b[1])
+                        for a, b in zip(runs[True], runs[False]))
+            print(f"[mesh cli] train SMOKE bkd {' '.join(extra)} meshed vs "
+                  f"unmeshed on the card: {len(runs[True])} printed numbers, "
+                  f"largest difference {worst:.2e} (limit 2e-4); final NLL "
+                  f"{runs[True][-1][1]:.4f} / {runs[False][-1][1]:.4f}")
+            check([k for k, _ in runs[True]] == [k for k, _ in runs[False]]
+                  and len(runs[True]) >= 5 and worst <= 2e-4,
+                  f"train cli SMOKE {extra}: {runs[True]} vs {runs[False]}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return launches["kd_stats_fwd"], launches["kd_grad_bwd"]
+
+
+def _torchrun(module, *args):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    <module> ...``, started (its output to a log under build/)."""
+    import os
+    log_dir = ROOT / "build" / "torchrun"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    log = open(log_dir / f"{module.rsplit('.', 1)[1]}.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", module, *args]
+    try:
+        return cmd, log, subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                          stdout=log,
+                                          stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def phase_guard_lint():
+    """Starts one ``torchrun --nproc-per-node 1`` of each launch CLI at
+    SMOKE (both must exit 0); while they run, serves phase 3's stream on a
+    warm Granite-3-2B engine (dense, full width) a second time under the
+    port's ``trace_guard``: no new admission or tick signature, no nvcc
+    build, ``torch.compile`` frame or graph capture; and runs the port's
+    lint gate (``python -m repro_torch.analysis``) on this host."""
+    import os
+    from repro_torch.analysis.sanitize import SignatureCounter, trace_guard
+    procs = [_torchrun("repro_torch.launch.serve", "--arch", "granite-3-2b"),
+             _torchrun("repro_torch.launch.train", "--arch", "granite-3-2b",
+                       "--rounds", "1", "--steps-per-phase", "3")]
+    t0 = time.perf_counter()
+    cfg = registry.get_config("granite-3-2b")
+    params = Transformer.init(cfg, 0, device="cuda")
+    engine = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                         device="cuda")
+    engine._admit_fn = admit = SignatureCounter(engine._admit_fn)
+    engine._tick_fn = tick = SignatureCounter(engine._tick_fn)
+    first = engine.run(_phase3_stream(cfg))
+    cold = (admit.compiles, tick.compiles, engine.prefill_compile_count())
+    engine.reset()
+    with trace_guard(max_compiles=0), \
+            trace_guard(admit, tick, engine, max_compiles=0) as guard:
+        second = engine.run(_phase3_stream(cfg))
+    torch.cuda.synchronize()
+    print(f"[guard] Granite-3-2B dense engine, phase 3's stream: cold run "
+          f"{cold[0]} admission and {cold[1]} tick signatures, "
+          f"prefill_compile_count {cold[2]}; warm run under trace_guard("
+          f"max_compiles=0): {guard.compiles()} new, no build, compile "
+          f"frame or capture ({time.perf_counter() - t0:.1f}s)")
+    check([(r.rid, r.out) for r in second] == [(r.rid, r.out) for r in first],
+          "guard: the warm run served other tokens")
+    del engine, params
+    torch.cuda.empty_cache()
+    tests = sorted(str(p.relative_to(ROOT))
+                   for p in ROOT.glob("tests/test_torch_*.py"))
+    lint = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "src/repro_torch",
+         "chip_smoke.py", *tests, "--baseline",
+         "src/repro_torch/analysis/lint_baseline.json"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    print(f"[lint] python -m repro_torch.analysis over {len(tests) + 2} "
+          f"paths: exit {lint.returncode}; {lint.stdout.strip()[-300:]}")
+    check(lint.returncode == 0, f"lint: {lint.stdout[-3000:]}"
+          f"{lint.stderr[-2000:]}")
+    for cmd, log, p in procs:
+        try:
+            p.wait(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+        text = Path(log.name).read_text()
+        tail = [ln for ln in text.splitlines()
+                if ln.startswith(("served ", "final core NLL"))]
+        print(f"[torchrun] {' '.join(cmd[2:])}: exit {p.returncode}; "
+              f"{tail[-1] if tail else text[-300:]}")
+        check(p.returncode == 0, f"torchrun {cmd}: {text[-3000:]}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3674,7 +3990,7 @@ def main():
     timed(phase_archs_parity)
     timed(phase_serve_moe)
     timed(phase_moe_parity)
-    timed(phase_llm_phase2)
+    llm_phase2_s = timed(phase_llm_phase2)
     timed(phase_llm_parity)
     launches = timed(phase_fl_async)
     for e, n in zip(kd_entries, launches):
@@ -3700,6 +4016,13 @@ def main():
     kd_entries[1]["launches"] += kdg_mesh
     timed(phase_kernels_bench)
     timed(phase_dryrun, dryruns)
+    paged_cli, swa_cli = timed(phase_mesh_serve_cli)
+    entry["launches"] += paged_cli
+    swa_entry["launches"] += swa_cli
+    kd_cli, kdg_cli = timed(phase_mesh_train_cli, llm_phase2_s)
+    kd_entries[0]["launches"] += kd_cli
+    kd_entries[1]["launches"] += kdg_cli
+    timed(phase_guard_lint)
     print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries
                       + [swa_entry, ssd_entry, rglru_entry]}))
     print(f"[done] {time.perf_counter() - t0:.1f}s")

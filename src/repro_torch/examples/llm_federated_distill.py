@@ -35,14 +35,13 @@ def _copy(tree):
 @torch.no_grad()
 def nll_on(cfg, params, data, batch, seq, device, n=4, seed=9):
     rng = np.random.default_rng(seed)
-    tot = 0.0
+    tot = torch.zeros((), dtype=torch.float32, device=device)
     for _ in range(n):
         sel = rng.integers(0, len(data), batch)
         toks = torch.as_tensor(data[sel], device=device)
         logits, _ = Transformer.apply(cfg, params, {"tokens": toks[:, :-1]})
-        tot += float(distill.ce_loss(logits, toks[:, 1:],
-                                     vocab=cfg.vocab_size))
-    return tot / n
+        tot = tot + distill.ce_loss(logits, toks[:, 1:], vocab=cfg.vocab_size)
+    return float(tot) / n
 
 
 def main(argv=None):

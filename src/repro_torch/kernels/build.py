@@ -23,6 +23,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# nvcc runs started by :func:`build` in this process (the compile guard's
+# global count, ``repro_torch.analysis.sanitize``).
+compiles = 0
 
 
 def _nvcc() -> str:
@@ -69,6 +72,8 @@ def build(name: str, verbose: bool = False) -> Path:
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
            "-o", tmp, str(source)]
+    global compiles
+    compiles += 1
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

@@ -112,6 +112,10 @@ def _check(labels, s, t, b, name):
     ``b``)."""
     if s.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {s.device}")
+    if any(hasattr(x, "device_mesh") for x in (labels, s, t, b)):
+        raise TypeError(f"{name} reads the local shards of a DTensor, not "
+                        f"the DTensor: ops.kd_loss runs the kernels on each "
+                        f"rank's shards")
     named = [("labels", labels)] + (
         [("teacher", t)] if t is not None else []) + (
         [("buffer", b)] if b is not None else [])
@@ -151,6 +155,9 @@ def _check_payload(s, codes, scale, zero):
     and zero float32 (rows,), all contiguous on the student's device."""
     rows = s.shape[0]
     for what, x in (("codes", codes), ("scale", scale), ("zero", zero)):
+        if hasattr(x, "device_mesh"):
+            raise TypeError(f"{what} is a DTensor: the kernels read local "
+                            f"shards (ops.kd_loss_quant)")
         if x.device != s.device:
             raise ValueError(f"{what} on {x.device}, student on {s.device}")
     if codes.dtype != torch.int8:

@@ -1,7 +1,10 @@
 """Public wrappers around the port's kernels: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor the hand-written kernel.  A ``meta`` tensor
 (shapes only: the mesh dry-run's) also takes the plain version, so that
-shapes and operation counts propagate."""
+shapes and operation counts propagate.  Under a mesh the fused KD losses
+run on each rank's local shards (:func:`_mean_on_shards`); the decode and
+scan wrappers are called on local shards by their callers
+(``repro_torch.sharding.local.run_local``)."""
 
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from repro_torch.kernels.rglru import rglru as rglru_kernel
 from repro_torch.kernels.ssd import chunk_size
 from repro_torch.kernels.ssd import ssd as ssd_kernel
 from repro_torch.kernels.swa_decode import swa_decode
+from repro_torch.sharding import local as _local
 
 # Devices whose tensors take a kernel's plain version.
 PLAIN = ("cpu", "meta")
@@ -95,24 +99,66 @@ def kd_grad(labels, g, stats, s, t, b, tau, mean_scale):
 
 
 class _KDLoss(torch.autograd.Function):
-    """mean(CE + tau^2 KL(t||s) [+ tau^2 KL(b||s)]) with the forward stats
-    and the student gradient from the kernel pair.  Teacher and buffer are
-    frozen: they get no gradient."""
+    """The per-row losses CE + tau^2 KL(t||s) [+ tau^2 KL(b||s)] with the
+    forward stats and the student gradient from the kernel pair; a mean
+    taken outside hands the backward its 1/rows per row.  Teacher and
+    buffer are frozen: they get no gradient."""
 
     @staticmethod
     def forward(ctx, labels, s, t, b, tau):
         stats = kd_stats(labels, s, t, b, tau)
         ctx.save_for_backward(labels, stats, s, t, b)
         ctx.tau = tau
-        return torch.mean(_kd.assemble_loss(stats, tau, b is not None))
+        return _kd.assemble_loss(stats, tau, b is not None)
 
     @staticmethod
     def backward(ctx, g):
         labels, stats, s, t, b = ctx.saved_tensors
-        rows = s.shape[0]
-        gv = g.float().expand(rows).contiguous()
-        ds = kd_grad(labels, gv, stats, s, t, b, ctx.tau, 1.0 / rows)
+        ds = kd_grad(labels, g.float().contiguous(), stats, s, t, b, ctx.tau,
+                     1.0)
         return None, ds, None, None, None
+
+
+def _check_labels(labels, s, name):
+    """On a CUDA tensor, asserts on the device (no host sync) that every
+    label lies in [0, V): one outside raises at the next synchronise."""
+    if s.device.type == "cuda":
+        v = s.shape[-1]
+        torch._assert_async(((labels >= 0) & (labels < v)).all(),
+                            f"{name}: a label is outside [0, {v})")
+
+
+def _mean_on_shards(rows_fn, mesh, labels, s, others, tau):
+    """The mean over rows of ``rows_fn(labels, s, *others, tau)``'s
+    per-row losses under a mesh: each rank runs ``rows_fn`` on whole
+    vocabulary rows of its own block of rows (``run_local``; a vocabulary
+    sharded over "model" is gathered first, the rows keep their shards over
+    "data"), so a CUDA shard launches the kernel pair.  Each rank's
+    student gradient is whole for its rows; the None entries of
+    ``others`` stay None."""
+    row = _local.keep_shards(s, mesh, (0,))
+    given = [o for o in others if o is not None]
+
+    def rows(y, s_, *rest):
+        it = iter(rest)
+        return rows_fn(y, s_, *(None if o is None else next(it)
+                                for o in others), tau)
+
+    args = (labels, s, *given)
+    # the gradient placements: each rank's student gradient is whole for
+    # its rows (ranks that hold the same rows compute the same gradient)
+    per_row = _local.run_local(rows, mesh, row, args, (row,) * len(args),
+                               (row,) * len(args))
+    return torch.mean(per_row)
+
+
+def _kd_rows(labels, s, t, b, tau):
+    s = s.contiguous()
+    t = t.detach().contiguous()
+    b = b.detach().contiguous() if b is not None else None
+    labels = labels.long().contiguous()
+    _check_labels(labels, s, "kd_loss")
+    return _KDLoss.apply(labels, s, t, b, float(tau))
 
 
 def kd_loss(labels, student_logits, teacher_logits, buffer_logits=None,
@@ -122,17 +168,15 @@ def kd_loss(labels, student_logits, teacher_logits, buffer_logits=None,
     student logits only.  labels (R,) integers in [0, V); logits (R, V) of
     one dtype, any V.  On a CUDA tensor the label range is asserted on the
     device (no host sync): a label outside [0, V) raises at the next
-    synchronise."""
-    s = student_logits.contiguous()
-    t = teacher_logits.detach().contiguous()
-    b = (buffer_logits.detach().contiguous()
-         if buffer_logits is not None else None)
-    labels = labels.long().contiguous()
-    if s.device.type == "cuda":
-        v = s.shape[-1]
-        torch._assert_async(((labels >= 0) & (labels < v)).all(),
-                            f"kd_loss: a label is outside [0, {v})")
-    return _KDLoss.apply(labels, s, t, b, float(tau))
+    synchronise.  DTensor inputs run on each rank's shards of the rows
+    (:func:`_mean_on_shards`)."""
+    mesh = _local.mesh_of(labels, student_logits, teacher_logits,
+                          buffer_logits)
+    if mesh is not None:
+        return _mean_on_shards(_kd_rows, mesh, labels, student_logits,
+                               (teacher_logits, buffer_logits), tau)
+    return torch.mean(_kd_rows(labels, student_logits, teacher_logits,
+                               buffer_logits, tau))
 
 
 # -- the dequant-fused KD loss: the teacher arrives as a transport payload ---
@@ -168,16 +212,25 @@ class _KDLossQuant(torch.autograd.Function):
         stats = kd_quant_stats(labels, s, codes, scale, zero, b, tau)
         ctx.save_for_backward(labels, stats, s, codes, scale, zero, b)
         ctx.tau = tau
-        return torch.mean(_kd.assemble_loss(stats, tau, b is not None))
+        return _kd.assemble_loss(stats, tau, b is not None)
 
     @staticmethod
     def backward(ctx, g):
         labels, stats, s, codes, scale, zero, b = ctx.saved_tensors
-        rows = s.shape[0]
-        gv = g.float().expand(rows).contiguous()
-        ds = kd_quant_grad(labels, gv, stats, s, codes, scale, zero, b,
-                           ctx.tau, 1.0 / rows)
+        ds = kd_quant_grad(labels, g.float().contiguous(), stats, s, codes,
+                           scale, zero, b, ctx.tau, 1.0)
         return None, ds, None, None, None, None, None
+
+
+def _kd_quant_rows(labels, s, codes, scale, zero, b, tau):
+    s = s.contiguous()
+    codes = codes.contiguous()
+    scale = scale.detach().contiguous()
+    zero = zero.detach().contiguous()
+    b = b.detach().contiguous() if b is not None else None
+    labels = labels.long().contiguous()
+    _check_labels(labels, s, "kd_loss_quant")
+    return _KDLossQuant.apply(labels, s, codes, scale, zero, b, float(tau))
 
 
 def kd_loss_quant(labels, student_logits, codes, scale, zero,
@@ -190,21 +243,17 @@ def kd_loss_quant(labels, student_logits, codes, scale, zero,
     labels (R,) integers in [0, V); student and buffer (R, V) of one dtype;
     codes (R, V); scale, zero (R,).  On a CUDA tensor the kernels dequantize
     in registers, so no f32 (R, V) teacher is made, and the label range is
-    asserted on the device as in :func:`kd_loss`.
+    asserted on the device as in :func:`kd_loss`; DTensor inputs run on
+    each rank's shards of the rows, as there.
 
     The JAX package pads to its kernel's 128-lane tile (codes with 0) and
     masks the pad columns by index against the true vocabulary; these
     kernels read exactly V columns, so the codes go in unpadded and the
     value on the true columns is the same without either step."""
-    s = student_logits.contiguous()
-    codes = codes.contiguous()
-    scale = scale.detach().contiguous()
-    zero = zero.detach().contiguous()
-    b = (buffer_logits.detach().contiguous()
-         if buffer_logits is not None else None)
-    labels = labels.long().contiguous()
-    if s.device.type == "cuda":
-        v = s.shape[-1]
-        torch._assert_async(((labels >= 0) & (labels < v)).all(),
-                            f"kd_loss_quant: a label is outside [0, {v})")
-    return _KDLossQuant.apply(labels, s, codes, scale, zero, b, float(tau))
+    mesh = _local.mesh_of(labels, student_logits, codes, scale, zero,
+                          buffer_logits)
+    if mesh is not None:
+        return _mean_on_shards(_kd_quant_rows, mesh, labels, student_logits,
+                               (codes, scale, zero, buffer_logits), tau)
+    return torch.mean(_kd_quant_rows(labels, student_logits, codes, scale,
+                                     zero, buffer_logits, tau))

@@ -7,6 +7,11 @@ this module touches no process group.  Single pod: 16 x 16 = 256 ranks
 that carries pure data parallelism.  A production mesh needs a process
 group of that world size: the dry-run's (``repro_torch.launch.dryrun``) is
 a fake one.
+
+The launch CLIs run under :func:`cli_mesh`: a process started by
+``torchrun`` joins its group through ``env://`` and runs on a mesh of the
+whole world; ``--mesh`` makes a one-rank mesh; with neither, a CLI runs
+with no mesh.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 import socket
 
 import torch
@@ -35,6 +41,11 @@ def mesh_context(mesh):
                         f"devices to place tensors on)")
     with _rules.active_mesh(mesh), implicit_replication():
         yield mesh
+
+
+def mesh_scope(mesh):
+    """:func:`mesh_context` of ``mesh``, or no context for None."""
+    return contextlib.nullcontext() if mesh is None else mesh_context(mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,23 +93,83 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def started_by_torchrun() -> bool:
+    """True when ``env://`` finds a rank, a world size and a rendezvous
+    address in the environment, as ``torchrun`` sets them."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                         "MASTER_PORT"))
+
+
+def init_group(device) -> bool:
+    """Makes the default process group unless one exists: ``nccl`` on
+    ``cuda``, ``gloo`` on ``cpu``; under ``torchrun`` joined through
+    ``env://`` (on ``cuda`` the card ``LOCAL_RANK`` is made current
+    first), else a one-rank group (``tcp://localhost`` on a free port).
+    Returns True when this call made the group."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    device = torch.device(device).type
+    backend = "nccl" if device == "cuda" else "gloo"
+    if started_by_torchrun():
+        if device == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(
+            backend, init_method=f"tcp://localhost:{free_port()}", rank=0,
+            world_size=1)
+    return True
+
+
 def make_test_mesh(devices: int = 8, *, device: str):
     """A small (data, model) mesh over ``min(devices, world size)`` ranks,
     ``model = 2`` when that count is even: ``nccl`` on ``cuda``, ``gloo``
-    on ``cpu``.  With no process group yet, a one-rank group on that
-    backend is made (``tcp://localhost`` on a free port)."""
+    on ``cpu``.  With no process group yet, one is made
+    (:func:`init_group`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     device = torch.device(device).type
-    if not dist.is_initialized():
-        dist.init_process_group(
-            "nccl" if device == "cuda" else "gloo",
-            init_method=f"tcp://localhost:{free_port()}", rank=0,
-            world_size=1)
+    init_group(device)
     d = min(devices, dist.get_world_size())
     model = 2 if d % 2 == 0 else 1
     return DeviceMesh(device, torch.arange(d).reshape(d // model, model),
                       mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def cli_mesh(*, full: bool, requested: bool, device):
+    """The mesh a launch CLI runs under, or None.  A process started by
+    ``torchrun``, or a CLI given ``--mesh`` (``requested``), runs on a
+    mesh of the whole group (a one-rank group without ``torchrun``): the
+    production mesh for ``--full`` (``full``) on a world of its size, as
+    the JAX CLIs' ``--full`` takes it, else :func:`make_test_mesh`.  With
+    neither, None: the JAX CLIs always mesh, but a one-rank mesh places
+    nothing and costs DTensor's dispatch on every op.  A group this call
+    made is destroyed on exit."""
+    if not (requested or started_by_torchrun()):
+        yield None
+        return
+    import torch.distributed as dist
+    device = torch.device(device).type
+    made = init_group(device)
+    try:
+        world = dist.get_world_size()
+        if full and world == math.prod(production_shape()[0]):
+            yield make_production_mesh(device=device)
+        else:
+            yield make_test_mesh(world, device=device)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def rank0_print(mesh):
+    """``print`` on rank 0 of ``mesh``'s group (and without a mesh); a
+    no-op on the other ranks."""
+    if mesh is None or mesh.get_rank() == 0:
+        return print
+    return lambda *args, **kwargs: None
 
 
 # H100 SXM5 constants for the dry-run's roofline (per GPU).

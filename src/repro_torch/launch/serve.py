@@ -10,6 +10,15 @@ prefix-cache counters.
 
 ``--legacy`` runs the frozen pre-engine loop instead
 (``repro_torch.serve.legacy``), the comparison baseline.
+
+Under ``torchrun`` (or with ``--mesh``, a one-rank mesh) the CLI runs on a
+mesh (``launch.mesh.cli_mesh``), as the JAX CLI does: the parameters are
+placed by their logical axes, the engine is built and run in the mesh's
+scope with the decode kernels on each rank's shards, every rank serves the
+same whole tokens and rank 0 prints:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --device cpu
 ``--arch mamba2-370m`` and ``--arch recurrentgemma-9b`` serve the recurrent
 archs on the dense engine with exact-length admission; ``--paged`` on them
 raises, as the JAX CLI does (recurrent state has no pages).  Weights are
@@ -26,9 +35,13 @@ import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.configs import registry
+from repro_torch.launch.mesh import cli_mesh, mesh_scope, rank0_print
+from repro_torch.launch.specs import place_params
 from repro_torch.models.transformer import Transformer
-from repro_torch.serve import STREAMS, ServeEngine, build_stream
+from repro_torch.serve import STREAMS, build_stream
 from repro_torch.serve import legacy as legacy_mod
+from repro_torch.serve.engine import engine_on
+from repro_torch.sharding.rules import axis_sizes
 
 
 def _percentile_ms(vals, q):
@@ -86,16 +99,28 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run on a one-rank mesh without torchrun (under "
+                         "torchrun the CLI always runs on a mesh)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    with cli_mesh(full=args.full, requested=args.mesh, device=device) as mesh:
+        return _serve(args, device, mesh)
+
+
+def _serve(args, device, mesh):
+    say = rank0_print(mesh)
     cfg = (registry.get_config(args.arch) if args.full
            else registry.get_smoke_config(args.arch))
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode step")
     if args.ring:
         cfg = dataclasses.replace(cfg, sliding_window=32, ring_cache=True)
-    params = Transformer.init(cfg, args.seed, device=device)
+    with mesh_scope(mesh):
+        params = Transformer.init(cfg, args.seed, device=device)
+        if mesh is not None:
+            params = place_params(cfg, params, mesh)
     if args.ring and args.paged:
         raise SystemExit("--ring and --paged are exclusive (the page pool "
                          "replaces the ring buffer)")
@@ -105,36 +130,36 @@ def main(argv=None):
                                        - args.shared_prefix),
                         out_max=args.out_max,
                         shared_prefix=args.shared_prefix)
-    if not args.legacy:
-        engine = ServeEngine(cfg, params, slots=args.slots,
-                             max_len=args.max_len, sample=args.sample,
-                             temperature=args.temperature,
-                             top_k=args.top_k if args.sample == "topk" else 0,
-                             seed=args.seed, paged=args.paged,
-                             page_size=args.page_size, device=device)
-    t0 = time.perf_counter()
     if args.legacy:
+        t0 = time.perf_counter()
         finished = legacy_mod.simulate(cfg, params, reqs, args.slots,
-                                       args.max_len)
+                                       args.max_len, mesh=mesh, log=say)
     else:
-        finished = engine.run(reqs, log=print)
+        with engine_on(cfg, params, args.slots, args.max_len, mesh=mesh,
+                       sample=args.sample, temperature=args.temperature,
+                       top_k=args.top_k if args.sample == "topk" else 0,
+                       seed=args.seed, paged=args.paged,
+                       page_size=args.page_size, device=device) as engine:
+            t0 = time.perf_counter()
+            finished = engine.run(reqs, log=say)
     stats = summarize(finished, time.perf_counter() - t0)
     cache = "paged" if args.paged else ("ring" if args.ring else "full")
     mode = "legacy" if args.legacy else f"engine[{args.sample}, {cache} cache]"
-    print(f"served {stats['requests']}/{args.requests} requests "
-          f"({args.stream} stream, {mode} on "
-          f"{device}): {stats['tokens']} tokens in {stats['seconds']}s = "
-          f"{stats['tok_per_sec']} tok/s; "
-          f"TTFT p50/p99 {stats['ttft_p50_ms']}/{stats['ttft_p99_ms']} ms; "
-          f"ITL p50/p99 {stats['itl_p50_ms']}/{stats['itl_p99_ms']} ms")
+    where = device if mesh is None else f"{device}, mesh {axis_sizes(mesh)}"
+    say(f"served {stats['requests']}/{args.requests} requests "
+        f"({args.stream} stream, {mode} on "
+        f"{where}): {stats['tokens']} tokens in {stats['seconds']}s = "
+        f"{stats['tok_per_sec']} tok/s; "
+        f"TTFT p50/p99 {stats['ttft_p50_ms']}/{stats['ttft_p99_ms']} ms; "
+        f"ITL p50/p99 {stats['itl_p50_ms']}/{stats['itl_p99_ms']} ms")
     if not args.paged or args.legacy:
         return finished
     ps = engine.prefix_stats()
-    print(f"paged: {ps['hits']} prefix hits / {ps['misses']} misses, "
-          f"peak {ps['peak_pages']} pages "
-          f"({engine.resident_cache_bytes()} B resident vs "
-          f"{engine.slots * engine.pages_per_slot * engine.cache_page_bytes()}"
-          f" B dense-equivalent)")
+    say(f"paged: {ps['hits']} prefix hits / {ps['misses']} misses, "
+        f"peak {ps['peak_pages']} pages "
+        f"({engine.resident_cache_bytes()} B resident vs "
+        f"{engine.slots * engine.pages_per_slot * engine.cache_page_bytes()}"
+        f" B dense-equivalent)")
     return finished
 
 

@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models.transformer import LMConfig, Transformer
 from repro_torch.sharding.rules import named_sharding, tree_map_axes
+from repro_torch.tree import tree_map
 
 
 def _meta(shape, dtype):
@@ -62,6 +63,15 @@ def batch_shardings(batch, mesh):
     return {k: named_sharding(axes[k], batch[k].shape, mesh) for k in batch}
 
 
+def place_batch(batch, mesh):
+    """A model-input dict as DTensors placed by :func:`batch_shardings`;
+    every rank passes the same full batch (one seed) and keeps its
+    shards."""
+    from torch.distributed.tensor import distribute_tensor
+    return {k: distribute_tensor(batch[k], m, pl, src_data_rank=None)
+            for k, (m, pl) in batch_shardings(batch, mesh).items()}
+
+
 def abstract_params(cfg: LMConfig):
     """(meta parameters, logical specs): no allocation."""
     return Transformer.init(cfg, device="meta"), Transformer.specs(cfg)
@@ -82,6 +92,18 @@ def params_shardings(cfg: LMConfig, mesh):
     """(meta parameters, a tree of ``(mesh, placements)``)."""
     shapes, specs = abstract_params(cfg)
     return shapes, _shardings(specs, shapes, mesh)
+
+
+def place_params(cfg: LMConfig, params, mesh):
+    """A parameter tree as DTensors on ``mesh``, each leaf placed by its
+    logical axes (``Transformer.specs``, :func:`params_shardings`); every
+    rank passes the same full values (one seed) and keeps its shards, so
+    nothing is sent."""
+    from torch.distributed.tensor import distribute_tensor
+    _, shardings = params_shardings(cfg, mesh)
+    return tree_map(lambda p, sh: distribute_tensor(p, sh[0], sh[1],
+                                                    src_data_rank=None),
+                    params, shardings)
 
 
 def cache_shardings(cfg: LMConfig, batch, max_len, mesh):

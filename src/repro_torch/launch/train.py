@@ -13,15 +13,23 @@ round (distill-on-arrival), so the two-level ``hier_*`` streams are
 refused.
 
 By default ``--arch <id>`` runs its reduced (SMOKE) config; ``--full``
-runs the full-width config.  This CLI runs without a mesh, on one
-device (the port's sharding rules, meshed Phase 1 and the dry-run are in;
-this CLI under ``make_test_mesh()`` and ``torchrun`` is ROADMAP queue 1's
-last slice).  On a CUDA device the Phase-2 loss runs through the hand-written
-kernel pair ``kd_stats_fwd`` + ``kd_grad_bwd`` (``--loss-backend
-auto``/``pallas``).
+runs the full-width config.  On a CUDA device the Phase-2 loss runs
+through the hand-written kernel pair ``kd_stats_fwd`` + ``kd_grad_bwd``
+(``--loss-backend auto``/``pallas``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --rounds 2 --edges 2 --steps-per-phase 30 --method bkd [--device cpu]
+
+Under ``torchrun`` (or with ``--mesh``, a one-rank mesh) the driver runs
+on a mesh (``launch.mesh.cli_mesh``), as the JAX driver does: the
+parameters and both AdamW states are DTensors placed by their logical
+axes, every rank draws the same batches from the seed and places them by
+the batch rule, and every step, copy, EMA update, codec round trip and
+the final NLL run in the mesh's scope; the kd pair runs on each rank's
+rows (``ops.kd_loss``), and rank 0 prints:
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --device cpu
 
 The steps take over the trees they update (the reference's
 ``donate_argnums``), and the driver drops each optimizer state once nothing
@@ -52,8 +60,12 @@ from repro_torch.core.simulator import (PROFILE_FAMILIES, DistillOnArrival,
                                         EventDrivenSimulator)
 from repro_torch.data import make_token_stream
 from repro_torch.launch import steps as St
+from repro_torch.launch.mesh import cli_mesh, mesh_scope, rank0_print
+from repro_torch.launch.specs import place_batch, place_params
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adamw
+from repro_torch.sharding.local import full
+from repro_torch.sharding.rules import axis_sizes
 from repro_torch.transport import codec_names, parse_codec
 from repro_torch.tree import tree_map
 
@@ -62,23 +74,27 @@ def _copy(tree):
     return tree_map(lambda t: t.clone(), tree)
 
 
-def lm_batches(tokens, batch, seq, steps, seed=0, device="cpu"):
+def lm_batches(tokens, batch, seq, steps, seed=0, device="cpu", mesh=None):
+    """``steps`` batches of ``batch`` windows drawn from ``seed``; with a
+    ``mesh``, placed by the batch rule (every rank draws the same)."""
     rng = np.random.default_rng(seed)
     n = len(tokens)
     for _ in range(steps):
         sel = rng.integers(0, n, size=batch)
         chunk = tokens[sel, : seq + 1]
-        yield {"tokens": torch.as_tensor(chunk[:, :-1], device=device),
+        out = {"tokens": torch.as_tensor(chunk[:, :-1], device=device),
                "labels": torch.as_tensor(chunk[:, 1:], device=device)}
+        yield out if mesh is None else place_batch(out, mesh)
 
 
 @torch.no_grad()
-def eval_nll(cfg, params, tokens, batch, seq, device, n_batches=4, seed=1):
+def eval_nll(cfg, params, tokens, batch, seq, device, n_batches=4, seed=1,
+             mesh=None):
     tot = torch.zeros((), dtype=torch.float32, device=device)
-    for b in lm_batches(tokens, batch, seq, n_batches, seed, device):
+    for b in lm_batches(tokens, batch, seq, n_batches, seed, device, mesh):
         logits, _ = Transformer.apply(cfg, params, {"tokens": b["tokens"]})
         tot = tot + distill.ce_loss(logits, b["labels"], vocab=cfg.vocab_size)
-    return float(tot) / n_batches
+    return float(full(tot)) / n_batches
 
 
 def _parser():
@@ -134,6 +150,9 @@ def _parser():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain PyTorch path")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run on a one-rank mesh without torchrun (under "
+                         "torchrun the driver always runs on a mesh)")
     return ap
 
 
@@ -167,7 +186,16 @@ def main(argv=None):
     if cfg.is_encoder or cfg.is_vlm:
         raise SystemExit("train.py drives token-LM FL; see examples/ for "
                          "encoder/VLM paths")
-    print(f"arch={cfg.name} device={device} method={args.method}")
+    with cli_mesh(full=args.full, requested=args.mesh, device=device) as mesh:
+        with mesh_scope(mesh):
+            return _run(ap, args, meth, codec, device, cfg, mesh)
+
+
+def _run(ap, args, meth, codec, device, cfg, mesh):
+    say = rank0_print(mesh)
+    where = (f"device={device}" if mesh is None else
+             f"device={device} mesh={axis_sizes(mesh)}")
+    say(f"arch={cfg.name} {where} method={args.method}")
 
     # Domain-silo corpora: silo 0 is the core set, 1..K are edges.
     data, domains = make_token_stream(cfg.vocab_size, 256 * (args.edges + 1),
@@ -175,7 +203,8 @@ def main(argv=None):
                                       seed=args.seed)
     silos = [data[domains == d] for d in range(args.edges + 1)]
     batches = lambda silo, seed: lm_batches(  # noqa: E731
-        silos[silo], args.batch, args.seq, args.steps_per_phase, seed, device)
+        silos[silo], args.batch, args.seq, args.steps_per_phase, seed, device,
+        mesh)
 
     opt = adamw(args.lr)
     pre_step = St.make_pretrain_step(cfg, opt, loss_chunk=args.seq)
@@ -238,12 +267,14 @@ def main(argv=None):
         source = sim_cls(args.edges, profiles=profile,
                          trigger=DistillOnArrival(), seed=args.seed,
                          payload_bytes=payload_bytes)
-        print(f"{sim_kind} simulator: profiles={profile}, distill-on-arrival")
+        say(f"{sim_kind} simulator: profiles={profile}, distill-on-arrival")
     else:
         source = build_scenario(args.scenario, num_edges=args.edges,
                                 seed=args.seed)
 
     params = Transformer.init(cfg, args.seed, device=device)
+    if mesh is not None:
+        params = place_params(cfg, params, mesh)
     opt_state = opt.init(params)
 
     # Phase 0: core pre-training.
@@ -251,8 +282,8 @@ def main(argv=None):
     for i, batch in enumerate(batches(0, args.seed)):
         params, opt_state, m = pre_step(params, opt_state, batch, i)
     opt_state = None   # Phase 2 starts its own; nothing reads this again
-    print(f"[phase0] loss={float(m['loss']):.4f} "
-          f"({time.perf_counter() - t0:.1f}s)")
+    say(f"[phase0] loss={float(full(m['loss'])):.4f} "
+        f"({time.perf_counter() - t0:.1f}s)")
 
     w0 = _copy(params)
     plans = list(source.plans(args.rounds))
@@ -286,12 +317,12 @@ def main(argv=None):
                  f" stale={task.staleness}")
         tinfo = (f" t={plan.time:.2f}" if getattr(plan, "trigger", "")
                  else "")
-        print(f"[round {r}] edge {edge} trained{stale}{tinfo}, "
-              f"loss={float(m['loss']):.4f} "
-              f"(phase1 {time.perf_counter() - t1:.2f}s)")
+        say(f"[round {r}] edge {edge} trained{stale}{tinfo}, "
+            f"loss={float(full(m['loss'])):.4f} "
+            f"(phase1 {time.perf_counter() - t1:.2f}s)")
 
         if plan.withdraw:
-            print(f"[round {r}] straggler round withdrawn (no distillation)")
+            say(f"[round {r}] straggler round withdrawn (no distillation)")
             continue
         # One teacher's logits cross the uplink per distilled round.
         uplink_total += payload_bytes
@@ -300,8 +331,8 @@ def main(argv=None):
             # fedavg: the "distill" phase is parameter averaging (the
             # round's R=1 weighted average is the teacher itself).
             params = _copy(teacher)
-            print(f"[round {r}] aggregated ({args.method}): "
-                  f"core <- average of round teachers")
+            say(f"[round {r}] aggregated ({args.method}): "
+                f"core <- average of round teachers")
             continue
 
         # Phase 2: distillation into the core over the core silo, wired
@@ -326,19 +357,20 @@ def main(argv=None):
         if meth.llm_ema:
             params = ema
         opt_state = buffer_params = None
-        loss, kd = float(m["loss"]), float(m["kd_loss"])
+        loss, kd = float(full(m["loss"])), float(full(m["kd_loss"]))
         dt = time.perf_counter() - t2
-        print(f"[round {r}] distilled ({args.method}), loss={loss:.4f} "
-              f"kd={kd:.4f} (phase2 {dt:.2f}s, "
-              f"{args.steps_per_phase / dt:.2f} steps/s)")
+        say(f"[round {r}] distilled ({args.method}), loss={loss:.4f} "
+            f"kd={kd:.4f} (phase2 {dt:.2f}s, "
+            f"{args.steps_per_phase / dt:.2f} steps/s)")
 
     if codec is not None:
         ident = 4.0 * cfg.vocab_size * args.steps_per_phase * args.batch * args.seq
-        print(f"transport={codec.spec}: uplink {uplink_total / 1e6:.3f} MB "
-              f"total ({payload_bytes / 1e6:.3f} MB/teacher, "
-              f"{ident / max(payload_bytes, 1.0):.1f}x vs raw float32)")
-    nll = eval_nll(cfg, params, silos[1], args.batch, args.seq, device)
-    print(f"final core NLL on edge-1 domain: {nll:.4f}")
+        say(f"transport={codec.spec}: uplink {uplink_total / 1e6:.3f} MB "
+            f"total ({payload_bytes / 1e6:.3f} MB/teacher, "
+            f"{ident / max(payload_bytes, 1.0):.1f}x vs raw float32)")
+    nll = eval_nll(cfg, params, silos[1], args.batch, args.seq, device,
+                   mesh=mesh)
+    say(f"final core NLL on edge-1 domain: {nll:.4f}")
     return params
 
 

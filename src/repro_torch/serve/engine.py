@@ -20,6 +20,7 @@ the trash page.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -755,22 +756,26 @@ def _copy_to(tree, device):
     return tree.detach().to(device, copy=True)
 
 
+@contextlib.contextmanager
+def engine_on(cfg, params, slots, max_len, mesh=None, **engine_kw):
+    """A :class:`ServeEngine` to build and run inside the block.  With a
+    ``mesh`` (a ``DeviceMesh``) the block is ``mesh_context(mesh)``, so
+    the engine is built and run in the mesh's scope: its slot state and
+    caches are DTensors placed by their logical axes, as the steps place
+    their outputs, parameters the caller did not shard count as
+    replicated, and the decode kernels run on every rank's local shards.
+    What reaches the host (the emitted tokens) is whole on every rank."""
+    from repro_torch.launch.mesh import mesh_scope
+    with mesh_scope(mesh):
+        yield ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                          **engine_kw)
+
+
 def simulate(cfg, params, requests, slots, max_len, mesh=None, log=print,
              **engine_kw):
     """Functional wrapper with the JAX package's ``simulate`` signature:
-    build an engine, serve the request list, return the finished requests.
-    With a ``mesh`` (a ``DeviceMesh``) the engine is built and run inside
-    ``mesh_context(mesh)``: its slot state and caches are DTensors placed
-    by their logical axes, parameters the caller did not shard count as
-    replicated, and the decode kernels run on every rank's local shards.
-    What reaches the host (the emitted tokens) is whole on every rank."""
-    if mesh is None:
-        return ServeEngine(cfg, params, slots=slots, max_len=max_len,
-                           **engine_kw).run(requests, log=log)
-    from repro_torch.launch.mesh import mesh_context
-    with mesh_context(mesh):
-        # built inside the mesh scope, so the slot state is placed as the
-        # steps place their outputs
-        engine = ServeEngine(cfg, params, slots=slots, max_len=max_len,
-                             **engine_kw)
+    build an engine (on ``mesh``, :func:`engine_on`), serve the request
+    list, return the finished requests."""
+    with engine_on(cfg, params, slots, max_len, mesh=mesh,
+                   **engine_kw) as engine:
         return engine.run(requests, log=log)

@@ -1182,7 +1182,8 @@ def test_rglru_kernel_matches_ref(cuda, shape):
 
 
 def test_rglru_kernel_wrapper_checks_inputs(cuda):
-    a = torch.rand((2, 8, 16), device=cuda)
+    a = torch.rand((2, 8, 16), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(0))
     with pytest.raises(TypeError):
         rglru(a.double(), a.double())
     with pytest.raises(TypeError):
@@ -1393,7 +1394,8 @@ def test_recurrent_training_on_card_takes_the_plain_scans(cuda, arch):
     block = Transformer.init(cfg, 4, device="cuda")["blocks"]
     layer = tree_map(lambda v: v[0].detach().requires_grad_(),
                      block[f"b{cfg.block_pattern.index(kind)}"]["mixer"])
-    x = torch.randn(2, 16, cfg.d_model, device="cuda")
+    x = torch.randn(2, 16, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
     with pytest.raises(NotImplementedError, match="forward-only"):
         lib.forward(layer, sub, x, use_kernel=True)
     lib.forward(layer, sub, x, use_kernel=False).sum().backward()

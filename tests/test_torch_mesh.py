@@ -198,18 +198,20 @@ _TWO_RANKS = textwrap.dedent('''
     from torch.distributed.device_mesh import DeviceMesh
     rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     serve_cases, train_cases = sys.argv[4].split(","), sys.argv[5].split(",")
+    kd_cases = sys.argv[6].split(",")
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=2)
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.configs import registry
+    from repro_torch.kernels import ops
     from repro_torch.launch import specs, steps
     from repro_torch.launch.mesh import mesh_context
     from repro_torch.models.transformer import Transformer
     from repro_torch.optim import adamw
     from repro_torch.serve import build_stream, simulate
     from repro_torch.sharding import local
-    from repro_torch.sharding.rules import tree_map_axes
+    from repro_torch.transport import parse_codec
 
     sharded = set()   # per-rank functions that ran on a split input
     run_local = local.run_local
@@ -241,7 +243,8 @@ _TWO_RANKS = textwrap.dedent('''
         return {k: v for key in tree for k, v in
                 flat(tree[key], f"{pre}/{key}").items()}
 
-    def phase2(arch, mesh):
+    def phase2(arch, *rest):
+        *backend, mesh = rest
         cfg = registry.get_smoke_config(arch)
         nets = [Transformer.init(cfg, i, device="cpu") for i in range(3)]
         g = torch.Generator().manual_seed(1)
@@ -249,19 +252,15 @@ _TWO_RANKS = textwrap.dedent('''
                                   dtype=torch.int32)
                  for k in ("tokens", "labels")}
         if mesh is not None:
-            tree = Transformer.specs(cfg)
-            nets = [tree_map_axes(lambda ax, p: distribute_tensor(
-                p, mesh, specs.named_sharding(ax, p.shape, mesh)[1]),
-                tree, n) for n in nets]
-            batch = {k: distribute_tensor(batch[k], mesh, pl)
-                     for k, (_, pl) in
-                     specs.batch_shardings(batch, mesh).items()}
+            nets = [specs.place_params(cfg, n, mesh) for n in nets]
+            batch = specs.place_batch(batch, mesh)
         grads = []
         update = steps.update_in_place
         steps.update_in_place = lambda opt, g_, *a: (grads.append(flat(g_)),
                                                     update(opt, g_, *a))[1]
         opt = adamw(1e-3)
-        step = steps.make_phase2_step(cfg, opt, buffer_mode="clone")
+        step = steps.make_phase2_step(cfg, opt, buffer_mode="clone",
+                                      loss_backend=(backend or ["auto"])[0])
         try:
             with (mesh_context(mesh) if mesh is not None
                   else contextlib.nullcontext()):
@@ -271,14 +270,40 @@ _TWO_RANKS = textwrap.dedent('''
             steps.update_in_place = update
         return {"loss": local.full(m["loss"]).item(), "grads": grads[0]}
 
+    def fused(op, mesh):
+        """Loss and student gradient of one fused KD loss on 8 rows of 33
+        logits with a buffer (the quant pair's teacher an int8 payload)."""
+        g = torch.Generator().manual_seed(2)
+        s, t, b = (torch.randn(8, 33, generator=g) for _ in range(3))
+        y = torch.randint(0, 33, (8,), generator=g)
+        if op == "kd_loss":
+            args = (t,)
+        else:
+            p = parse_codec("int8").encode(t)
+            args = (p["codes"], p["scale"], p["zero"])
+        if mesh is not None:
+            # (2, 1): rows split over "data"; (1, 2): the vocabulary over
+            # "model" (gathered for the kernels)
+            split = [Shard(0), Replicate()] if mesh.shape[0] == 2 else \
+                [Replicate(), Shard(1)]
+            s, y, b, *args = (distribute_tensor(
+                x, mesh, split if x.dim() == 2 or mesh.shape[0] == 2
+                else [Replicate()] * 2) for x in (s, y, b, *args))
+        s = s.detach().requires_grad_()
+        loss = getattr(ops, op)(y, s, *args, b, tau=2.0)
+        loss.backward()
+        return {"loss": local.full(loss).item(),
+                "grads": {"s": local.full(s.grad).clone()}}
+
     res = {}
-    for what, cases in (("serve", serve_cases), ("train", train_cases)):
+    for what, cases in (("serve", serve_cases), ("train", train_cases),
+                        ("kd", kd_cases)):
         for case in cases:
             *job, shape = case.split(":")
             sharded.clear()
             t = time.perf_counter()
             try:
-                fn = serve if what == "serve" else phase2
+                fn = {"serve": serve, "train": phase2, "kd": fused}[what]
                 got = fn(*job, mesh_of(shape))
                 want = fn(*job, None) if rank == 0 else None
                 res[what, case] = {"got": got, "want": want,
@@ -312,18 +337,27 @@ _TRAIN = {
     "mamba2-370m:2x1": {"forward.<locals>.scan"},
     "recurrentgemma-9b:1x2": {"rglru_scan_reference",
                               "_gates.<locals>.local"},
+    # the fused KD loss ('pallas': the kd pair's plain versions on the CPU)
+    # on each rank's block of the rows
+    "granite-3-2b:pallas:2x1": {"_mean_on_shards.<locals>.rows"},
 }
+# the fused KD losses called on DTensors: each rank's rows at (2, 1); at
+# (1, 2) the vocabulary is sharded, gathered, and every rank takes all rows
+_KD = {"kd_loss:2x1": {"_mean_on_shards.<locals>.rows"},
+       "kd_loss_quant:2x1": {"_mean_on_shards.<locals>.rows"},
+       "kd_loss:1x2": set()}
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
-    """Both ranks' results for every case of ``_SERVE`` and ``_TRAIN``
-    (rank 0's also unmeshed), from one pair of gloo processes."""
+    """Both ranks' results for every case of ``_SERVE``, ``_TRAIN`` and
+    ``_KD`` (rank 0's also unmeshed), from one pair of gloo processes."""
     out = tmp_path_factory.mktemp("two_ranks")
     port = str(free_port())
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r), port,
-                               str(out), ",".join(_SERVE), ",".join(_TRAIN)],
+                               str(out), ",".join(_SERVE), ",".join(_TRAIN),
+                               ",".join(_KD)],
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT) for r in (0, 1)]
     for p in procs:
@@ -348,7 +382,16 @@ def test_two_rank_meshed_serving_equals_unmeshed(two_ranks, case):
 
 @pytest.mark.parametrize("case", list(_TRAIN))
 def test_two_rank_meshed_phase2_gradients_equal_unmeshed(two_ranks, case):
-    r0, r1 = _case(two_ranks, "train", case)
+    _equal_loss_and_grads(two_ranks, "train", case, _TRAIN)
+
+
+@pytest.mark.parametrize("case", list(_KD))
+def test_two_rank_fused_kd_losses_run_on_each_ranks_rows(two_ranks, case):
+    _equal_loss_and_grads(two_ranks, "kd", case, _KD)
+
+
+def _equal_loss_and_grads(two_ranks, what, case, table):
+    r0, r1 = _case(two_ranks, what, case)
     want = r0["want"]
     for got in (r0["got"], r1["got"]):
         assert got["loss"] == pytest.approx(want["loss"], rel=1e-6)
@@ -356,4 +399,4 @@ def test_two_rank_meshed_phase2_gradients_equal_unmeshed(two_ranks, case):
         for k, w in want["grads"].items():
             err = (got["grads"][k] - w).abs().max() / w.abs().max()
             assert err < 1e-4, (k, err.item())
-    assert _TRAIN[case] <= r0["sharded"], r0["sharded"]
+    assert table[case] <= r0["sharded"], r0["sharded"]
