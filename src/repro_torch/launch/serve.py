@@ -55,8 +55,10 @@ def summarize(finished, wall_seconds):
     """Aggregate a finished request list into throughput and latency stats."""
     toks = sum(len(r.out) for r in finished)
     ttfts = [r.ttft for r in finished if r.t_first >= 0 and r.t_enqueue >= 0]
-    itls = [r.itl for r in finished
-            if len(r.out) > 1 and r.t_done >= 0 and r.t_first >= 0]
+    # every gap between consecutive tokens of a request, so the p99 is a
+    # tail of gaps and not of per-request means
+    itls = [b - a for r in finished
+            for a, b in zip(r.t_tokens, r.t_tokens[1:])]
     return {
         "requests": len(finished),
         "tokens": toks,

@@ -32,11 +32,13 @@ a CPU tensor.  ``"auto"`` is ``"pallas"`` on a CUDA device and ``"jnp"``
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import spans
 from repro_torch.core import distill
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import LMConfig, Transformer
@@ -149,13 +151,16 @@ def _chunked_bkd_loss(cfg: LMConfig, student, teacher, buffer_params, batch,
     return _map_chunks(one, nc)
 
 
-def _value_and_grad(loss_fn, params):
+def _value_and_grad(loss_fn, params, backward_span=None):
     """(outputs of ``loss_fn(params)``, gradient tree of its first output
     w.r.t. ``params``).  Every intermediate (the graph, the parameter
-    views) is released before this returns."""
+    views) is released before this returns.  ``backward_span`` names the
+    span around the backward pass (remat recompute included)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     outs = loss_fn(tree_unflatten(params, leaves))
-    grads = torch.autograd.grad(outs[0], leaves)
+    with (spans.span(backward_span) if backward_span
+          else contextlib.nullcontext()):
+        grads = torch.autograd.grad(outs[0], leaves)
     return tuple(o.detach() for o in outs), tree_unflatten(params, grads)
 
 
@@ -191,26 +196,31 @@ def make_phase2_step(cfg: LMConfig, opt, *, tau=2.0, buffer_mode="clone",
         backend = backend_on(tree_device(student))
 
         def loss_fn(params):
-            h_s, aux = Transformer.apply_hidden(cfg, params, batch)
-            h_b = cached = None
-            with torch.no_grad():
-                h_t, _ = Transformer.apply_hidden(cfg, teacher, batch)
-                if buffer_mode == "clone":
-                    h_b, _ = Transformer.apply_hidden(cfg, buffer_arg, batch)
-            if buffer_mode == "cached":
-                cached = buffer_arg
-            loss = _chunked_bkd_loss(
-                cfg, params, teacher,
-                buffer_arg if buffer_mode == "clone" else None, batch, h_s,
-                h_t, h_b, tau, loss_chunk, cached_buffer_logits=cached,
-                topk=topk, loss_backend=backend, ce_weight=ce_weight,
-                teacher_transform=teacher_transform)
-            return loss + aux_weight * aux, loss
+            with spans.span("phase2.forward"):
+                h_s, aux = Transformer.apply_hidden(cfg, params, batch)
+                h_b = cached = None
+                with torch.no_grad():
+                    h_t, _ = Transformer.apply_hidden(cfg, teacher, batch)
+                    if buffer_mode == "clone":
+                        h_b, _ = Transformer.apply_hidden(cfg, buffer_arg,
+                                                          batch)
+                if buffer_mode == "cached":
+                    cached = buffer_arg
+                loss = _chunked_bkd_loss(
+                    cfg, params, teacher,
+                    buffer_arg if buffer_mode == "clone" else None, batch,
+                    h_s, h_t, h_b, tau, loss_chunk,
+                    cached_buffer_logits=cached, topk=topk,
+                    loss_backend=backend, ce_weight=ce_weight,
+                    teacher_transform=teacher_transform)
+                return loss + aux_weight * aux, loss
 
-        (total, kd_loss), grads = _value_and_grad(loss_fn, student)
-        new_params, new_opt = update_in_place(opt, grads, opt_state, student,
-                                              step_idx)
-        return new_params, new_opt, {"loss": total, "kd_loss": kd_loss}
+        with spans.span("phase2.step"):
+            (total, kd_loss), grads = _value_and_grad(loss_fn, student,
+                                                      "phase2.backward")
+            with spans.span("phase2.optimizer"):
+                new = update_in_place(opt, grads, opt_state, student, step_idx)
+        return (*new, {"loss": total, "kd_loss": kd_loss})
 
     return step
 

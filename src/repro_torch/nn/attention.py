@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import ops
 from repro_torch.nn.rope import apply_mrope, apply_rope
 from repro_torch.sharding import local as _local
@@ -242,20 +243,23 @@ def attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
 
 
 def _attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
-    b, s, h, d = q.shape
-    t = k.shape[1]
-    n, g = cfg.kv_heads, cfg.q_groups
-    qg = q.reshape(b, s, n, g, d)
-    chunk = min(cfg.q_chunk, s)
-    if s % chunk != 0:
-        chunk = s  # no chunking for ragged sizes
-    k_pos = torch.arange(t, device=q.device)
-    outs = []
-    for start in range(0, s, chunk):
-        q_pos = q_offset + start + torch.arange(chunk, device=q.device)
-        outs.append(_attend_chunk(qg[:, start:start + chunk], k, v, q_pos,
-                                  k_pos, cfg))
-    return torch.cat(outs, dim=1).reshape(b, s, h, d)
+    """One ``attention`` span a call: every forward, and every remat
+    recompute in a backward pass."""
+    with spans.span("attention"):
+        b, s, h, d = q.shape
+        t = k.shape[1]
+        n, g = cfg.kv_heads, cfg.q_groups
+        qg = q.reshape(b, s, n, g, d)
+        chunk = min(cfg.q_chunk, s)
+        if s % chunk != 0:
+            chunk = s  # no chunking for ragged sizes
+        k_pos = torch.arange(t, device=q.device)
+        outs = []
+        for start in range(0, s, chunk):
+            q_pos = q_offset + start + torch.arange(chunk, device=q.device)
+            outs.append(_attend_chunk(qg[:, start:start + chunk], k, v,
+                                      q_pos, k_pos, cfg))
+        return torch.cat(outs, dim=1).reshape(b, s, h, d)
 
 
 def forward(params, cfg: AttnConfig, x, positions):

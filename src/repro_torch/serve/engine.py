@@ -26,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.models.transformer import (LMConfig, Transformer,
                                             attention_only)
 from repro_torch.serve.paged import (Admission, PageAllocator, TRASH_PAGE,
@@ -436,21 +436,29 @@ class ServeEngine:
         length = max(len(r.prompt) for _, r in group)
         if self._bucketed:
             length = self._bucket(length)
-        prompts = np.zeros((s, length), np.int32)
-        lengths = np.ones((s,), np.int32)
-        max_news = np.ones((s,), np.int32)
-        fill = np.zeros((s,), bool)
-        for slot, req in group:
-            plen = len(req.prompt)
-            prompts[slot, :plen] = req.prompt
-            lengths[slot], max_news[slot], fill[slot] = plen, req.max_new, True
-        self._admit_shapes.add((length, None))
-        (self.tokens, self.caches, self.pos, self.budget, self.active,
-         first, done_now) = self._admit_fn(
-            params, self.caches, self.tokens, self.pos, self.budget,
-            self.active, self._tensor(prompts), self._tensor(lengths),
-            self._tensor(max_news), self._tensor(fill), self._generator)
-        self._post_admit(group, first, done_now, now, length, log)
+        with spans.span("serve.admit", rows=len(group),
+                        prompt_tokens=sum(len(r.prompt) for _, r in group),
+                        positions=s * length,
+                        rids=[r.rid for _, r in group]):
+            prompts = np.zeros((s, length), np.int32)
+            lengths = np.ones((s,), np.int32)
+            max_news = np.ones((s,), np.int32)
+            fill = np.zeros((s,), bool)
+            for slot, req in group:
+                plen = len(req.prompt)
+                prompts[slot, :plen] = req.prompt
+                lengths[slot], max_news[slot], fill[slot] = (plen,
+                                                             req.max_new,
+                                                             True)
+            self._admit_shapes.add((length, None))
+            with spans.span("serve.prefill"):
+                (self.tokens, self.caches, self.pos, self.budget,
+                 self.active, first, done_now) = self._admit_fn(
+                    params, self.caches, self.tokens, self.pos, self.budget,
+                    self.active, self._tensor(prompts), self._tensor(lengths),
+                    self._tensor(max_news), self._tensor(fill),
+                    self._generator)
+            self._post_admit(group, first, done_now, now, length, log)
 
     def _post_admit(self, group, first, done_now, now, length, log):
         """Pull (first, done) once, stamp the requests, finish the
@@ -460,6 +468,7 @@ class ServeEngine:
         t_wall = time.perf_counter()
         for slot, req in group:
             req.out.append(int(first_np[slot]))
+            req.t_tokens.append(t_wall)
             req.admitted_at = now
             req.t_first = t_wall
             self._host_active[slot] = req
@@ -503,22 +512,29 @@ class ServeEngine:
         s = self.slots
         start = npp * self.page_size
         length = self._bucket(max(len(r.prompt) - start for _, r in group))
-        prompts = np.zeros((s, length), np.int32)
-        lengths = np.ones((s,), np.int32)
-        max_news = np.ones((s,), np.int32)
-        fill = np.zeros((s,), bool)
-        for slot, req in group:
-            sl = len(req.prompt) - start
-            prompts[slot, :sl] = req.prompt[start:]
-            lengths[slot], max_news[slot], fill[slot] = sl, req.max_new, True
-        self._admit_shapes.add((length, npp))
-        (self.tokens, self.caches, self.pos, self.budget, self.active,
-         first, done_now) = self._admit_fn(
-            params, self.caches, self.pt, self.tokens, self.pos, self.budget,
-            self.active, self._tensor(prompts), self._tensor(lengths),
-            self._tensor(max_news), self._tensor(fill), self._generator,
-            npp=npp)
-        self._post_admit(group, first, done_now, now, length, log)
+        with spans.span("serve.admit", rows=len(group),
+                        prompt_tokens=sum(len(r.prompt) - start
+                                          for _, r in group),
+                        positions=s * length,
+                        rids=[r.rid for _, r in group]):
+            prompts = np.zeros((s, length), np.int32)
+            lengths = np.ones((s,), np.int32)
+            max_news = np.ones((s,), np.int32)
+            fill = np.zeros((s,), bool)
+            for slot, req in group:
+                sl = len(req.prompt) - start
+                prompts[slot, :sl] = req.prompt[start:]
+                lengths[slot], max_news[slot], fill[slot] = (sl, req.max_new,
+                                                             True)
+            self._admit_shapes.add((length, npp))
+            with spans.span("serve.prefill"):
+                (self.tokens, self.caches, self.pos, self.budget,
+                 self.active, first, done_now) = self._admit_fn(
+                    params, self.caches, self.pt, self.tokens, self.pos,
+                    self.budget, self.active, self._tensor(prompts),
+                    self._tensor(lengths), self._tensor(max_news),
+                    self._tensor(fill), self._generator, npp=npp)
+            self._post_admit(group, first, done_now, now, length, log)
 
     def _finish(self, slot, now, t_wall, log):
         req = self._host_active[slot]
@@ -575,6 +591,10 @@ class ServeEngine:
 
         ``self.params`` is read once at entry, so a :meth:`commit_swap`
         between ticks is atomic: no tick mixes params versions."""
+        with spans.span("serve.tick"):
+            return self._tick()
+
+    def _tick(self):
         params = self.params
         log, now, base = self._log, self._now, self._base
         queue = self._queue
@@ -606,25 +626,30 @@ class ServeEngine:
             for _, group in sorted(groups.items()):
                 self._admit_group(params, group, now, log)
         if any(r is not None for r in self._host_active):
-            if self.paged:
-                (self.tokens, self.caches, self.pos, self.budget,
-                 self.active, done) = self._tick_fn(
-                    params, self.caches, self.pt, self.tokens, self.pos,
-                    self.budget, self.active, self._generator)
-            else:
-                (self.tokens, self.caches, self.pos, self.budget,
-                 self.active, done) = self._tick_fn(
-                    params, self.caches, self.tokens, self.pos, self.budget,
-                    self.active, self._generator)
+            with spans.span("serve.decode"):
+                if self.paged:
+                    (self.tokens, self.caches, self.pos, self.budget,
+                     self.active, done) = self._tick_fn(
+                        params, self.caches, self.pt, self.tokens,
+                        self.pos, self.budget, self.active,
+                        self._generator)
+                else:
+                    (self.tokens, self.caches, self.pos, self.budget,
+                     self.active, done) = self._tick_fn(
+                        params, self.caches, self.tokens, self.pos,
+                        self.budget, self.active, self._generator)
             self.decode_ticks += 1
-            emitted_np, done_np = full(torch.stack(
-                [self.tokens[:, 0], done.to(torch.int32)])).cpu().numpy()
+            with spans.span("serve.decode_read"):
+                emitted_np, done_np = full(torch.stack(
+                    [self.tokens[:, 0],
+                     done.to(torch.int32)])).cpu().numpy()
             t_wall = time.perf_counter()
             for s in range(self.slots):
                 req = self._host_active[s]
                 if req is None:
                     continue
                 req.out.append(int(emitted_np[s]))
+                req.t_tokens.append(t_wall)
                 if done_np[s]:
                     self._finish(s, now, t_wall, log)
         self._now = now + 1

@@ -1,9 +1,10 @@
 """Request-stream scenarios — named arrival processes for the serving engine.
 
 A copy of the JAX package's ``repro/serve/streams.py`` (numpy only, carried
-over verbatim apart from this docstring's cross-references): the same
-arguments and seed give the same stream in both packages, which
-``tests/test_torch_serve.py`` checks.
+over verbatim apart from this docstring's cross-references and the
+request's per-token stamps, ``Request.t_tokens``, in place of its mean
+``itl``): the same arguments and seed give the same stream in both
+packages, which ``tests/test_torch_serve.py`` checks.
 
 *When* requests arrive and *how long* their prompts/outputs are is a
 distribution family, not a hard-coded loop: a ``STREAMS`` registry of named
@@ -32,7 +33,8 @@ class Request:
     ``arrival`` is the virtual tick the request enters the queue; the
     engine stamps ``admitted_at``/``done_at`` (ticks) and
     ``t_enqueue``/``t_first``/``t_done`` (host wall-clock seconds) as the
-    request moves through the slot lifecycle — the raw material for
+    request moves through the slot lifecycle, and ``t_tokens``: the host
+    time each token of ``out`` reached the host — the raw material for
     time-to-first-token and inter-token latency percentiles."""
 
     rid: int
@@ -47,17 +49,12 @@ class Request:
     t_done: float = -1.0
     prefix_pages: int = 0    # pages served from the paged engine's prefix
                              # cache at admission (0 on the dense engine)
+    t_tokens: list = dataclasses.field(default_factory=list)
 
     @property
     def ttft(self) -> float:
         """Wall seconds from queue-eligible to first token on the host."""
         return self.t_first - self.t_enqueue
-
-    @property
-    def itl(self) -> float:
-        """Mean wall seconds between tokens after the first."""
-        n = len(self.out)
-        return (self.t_done - self.t_first) / max(n - 1, 1)
 
 
 #: name -> one-line description (the CLI/docs surface).
