@@ -257,7 +257,22 @@ together; each prints its kernels' registers and spills), then:
               signature, no nvcc build, ``torch.compile`` frame or graph
               capture) and runs the port's lint gate (``python -m
               repro_torch.analysis``) on the card's host: exit 0;
-45. kernels   prints one JSON line per the port's kernel table (eight
+45. flash     holds the flash attention pair (``flash_fwd``/``flash_bwd``,
+              CUDA C++) against the plain version (bf16 row by row, and
+              f32 in full IEEE f32), and in bf16 against its tiling
+              emulated on the same inputs, output and gradients, at
+              Granite-3-2B's (4 x 2,048, 32/8 x 64, causal) and
+              Qwen3-14B's (8 x 2,048, 40/8 x 128) shapes and at head dims
+              80 (bidirectional), 192, 256 (a window) and a prefix
+              (q_offset, T > S); the gradient twice, bit for bit;
+              ``torch.func.vmap(grad)`` through the pair; prints each
+              kernel's tiles and ptxas's registers and spills; times the pair from a CUDA graph at the main
+              shapes beside its bound, the plain version and
+              ``scaled_dot_product_attention`` (``library_ms``, a yardstick
+              the port never calls); then counts launches: a full-depth
+              Granite-3-2B Phase-2 step (bkd: 160 forward, 40 backward; kd:
+              120, 40) and a prefill (40, no backward);
+46. kernels   prints one JSON line per the port's kernel table (nine
               kernels; the kd pair's launches include phases 29, 35, 39
               and 43's, the quant pair's phase 32's, ``swa_decode``'s
               phases 35, 38's legacy loop, 39's and 42's, ``paged_decode``'s
@@ -310,6 +325,7 @@ from repro_torch.data import (Dataset, dirichlet_partition,  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.interop import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attn as fa_mod  # noqa: E402
 from repro_torch.kernels import kd_loss as kd_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_decode as pd_mod  # noqa: E402
@@ -3950,6 +3966,295 @@ def timed(fn, *args):
     return out
 
 
+# -- the flash attention pair -------------------------------------------------
+
+# (label, B, S, T, H, N, D, causal, window, q_offset): the main paths'
+# shapes first (Granite-3-2B's Phase 2, Qwen3-14B's prefill), then every
+# other head dim of the port's attention archs, each with another mask.
+FLASH_CASES = (
+    ("granite-3-2b", 4, 2048, 2048, 32, 8, 64, True, None, 0),
+    ("qwen3-14b", 8, 2048, 2048, 40, 8, 128, True, None, 0),
+    ("hubert d80 bidirectional", 2, 500, 500, 16, 16, 80, False, None, 0),
+    ("nemotron d192", 2, 1024, 1024, 96, 8, 192, True, None, 0),
+    ("recurrentgemma d256 window", 2, 1024, 1024, 16, 1, 256, True, 256, 0),
+    ("prefix q_offset", 2, 384, 1408, 32, 8, 64, True, None, 1024),
+)
+
+
+def _flash_inputs(b, s, t, h, n, d, dtype, seed, copies=1):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    return [(draw(b, s, h, d), draw(b, t, n, d), draw(b, t, n, d),
+             draw(b, s, h, d)) for _ in range(copies)]
+
+
+def _flash_flops(b, s, t, h, d, causal, window, q_offset):
+    """Useful forward FLOPs: QK^T and PV over the kept pairs."""
+    i = torch.arange(s, dtype=torch.float64)[:, None] + q_offset
+    j = torch.arange(t, dtype=torch.float64)[None, :]
+    keep = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= j > i - window
+    return 4.0 * b * h * d * float(keep.sum())
+
+
+def _flash_build_line():
+    """Builds the flash library at each padded head dim the cases use and
+    returns ptxas's registers (and spills, where any) of each kernel
+    (``-Xptxas -v``)."""
+    out = []
+    for d in sorted({fa_mod.plan(c[6], torch.bfloat16).d_pad
+                     for c in FLASH_CASES}):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fa_mod.build(d, verbose=True)
+        name, spills = "?", ""
+        for line in buf.getvalue().splitlines():
+            found = re.search(r"\dflash_attn_(\w+?)_kernel(I13__nv_bfloat16|If)?",
+                              line)
+            if "Compiling entry function" in line and found:
+                name = found.group(1) + ("_f32" if found.group(2) == "If"
+                                         else "")
+            elif "spill stores" in line and not line.strip().startswith("0 "):
+                spills = f" ({line.strip()})"
+            elif "Used" in line and "registers" in line:
+                regs = line.split("Used")[1].split("registers")[0].strip()
+                out.append(f"d{d} {name} {regs}{spills}")
+                spills = ""
+    return "; ".join(out)
+
+
+def _flash_check(label, b, s, t, h, n, d, causal, window, q_offset):
+    """Output and gradients against the plain version in f32 (its
+    autograd) from the same inputs, as ``tests/test_torch_gpu.py``'s flash
+    tests hold them: f32 within 1e-5 (output) and 1e-4 (gradients) of the
+    largest entry; bf16 row by row (each row's largest error over its RMS,
+    floored at 1% of the tensor's), the 99.9th percentile and the largest
+    no larger than the plain version's in bf16, each against the exact f32
+    version of what it computes (the pair's dq takes delta from its bf16
+    output: ``_dq_of_output_delta`` there); and bf16 within one rounding
+    (2^-7) plus 2^-8 of the row's RMS (floored at the tensor's) of the
+    tiling emulated on the same bf16 inputs (``kref.flash_fwd_tiled``,
+    ``flash_bwd_tiled``: the kernels' casts) but for at most 1e-5 of the
+    entries, each within 2^-4.  The gradient twice, bit for bit.  Returns
+    {dtype: [errors of o, dq, dk, dv]} (bf16: the rows' largest), the
+    plain bf16 version's and the largest bf16 error against the emulation
+    over the row's scale."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    names = ("o", "dq", "dk", "dv")
+
+    def run(attend, q, k, v, w):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = attend(*leaves, **kw)
+        (out.float() * w.float()).sum().backward()
+        return [out.detach()] + [x.grad for x in leaves]
+
+    def rel(got, want):
+        return [((a.float() - e).abs().max() / e.abs().max()).item()
+                for a, e in zip(got, want)]
+
+    def scale(e, floor):
+        rms = e.square().mean(-1).sqrt()
+        return rms.clamp_min(floor * e.square().mean().sqrt()).clamp_min(
+            1e-30)
+
+    def rows(a, e, floor):
+        r = ((a.float() - e.float()).abs().amax(-1)
+             / scale(e.float(), floor)).flatten()
+        return torch.quantile(r, 0.999).item(), r.max().item()
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, w = _flash_inputs(b, s, t, h, n, d, dtype, seed=5)[0]
+        got = run(ops.flash_attention, q, k, v, w)
+        for name, a, x in zip(names, got, (q, q, k, v)):
+            check(a.dtype == dtype and a.shape == x.shape,
+                  f"flash {label} {name}: {a.dtype} {tuple(a.shape)}")
+        again = run(ops.flash_attention, q, k, v, w)
+        check(all(torch.equal(a, g) for a, g in zip(again, got)),
+              f"flash {label} {dtype}: the result does not repeat bit for "
+              f"bit")
+        want = run(kref.attend_full_ref, *(x.float() for x in (q, k, v, w)))
+        if dtype == torch.float32:
+            errs[dtype] = rel(got, want)
+            for name, e, lim in zip(names, errs[dtype], (1e-5, 1e-4, 1e-4,
+                                                         1e-4)):
+                check(math.isfinite(e) and e <= lim,
+                      f"flash {label} f32 {name}: relative err {e} > {lim}")
+        else:
+            plain = run(kref.attend_full_ref, q, k, v, w)
+            q32, k32 = q.float(), k.float()
+            dd = ((got[0].float() - want[0]) * w.float()).sum(-1, keepdim=True)
+            mine = list(want)
+            mine[1] = want[1] - dd * kref.attend_full_ref(
+                q32, k32, k32, **kw) / math.sqrt(d)
+            mq = [rows(a, e, 1e-2) for a, e in zip(got, mine)]
+            pq = [rows(a, e, 1e-2) for a, e in zip(plain, want)]
+            errs[dtype] = [x[1] for x in mq]
+            errs["plain"] = [x[1] for x in pq]
+            for name, m, pl in zip(names, mq, pq):
+                check(all(math.isfinite(x) for x in m)
+                      and m[0] <= pl[0] and m[1] <= pl[1],
+                      f"flash {label} bf16 {name}: rows' errors (99.9%, max) "
+                      f"{m} past the plain version's {pl}")
+            p = fa_mod.plan(d, dtype)
+            o, lse = kref.flash_fwd_tiled(q, k, v, block_m=p.fwd.block_m,
+                                          block_n=p.fwd.block_n, **kw)
+            emu = [o, *kref.flash_bwd_tiled(
+                w, q, k, v, o, lse, dkdv_blocks=p.dkdv[:2],
+                dq_blocks=p.dq[:2], **kw)]
+            errs["emulated"] = max(rows(a, e, 1.0)[1]
+                                   for a, e in zip(got, emu))
+            for name, a, e in zip(names, got, emu):
+                a, e = a.float(), e.float()
+                sc = scale(e, 1.0)[..., None]
+                err = (a - e).abs() - 2 ** -7 * e.abs()
+                tipped = int((err > 2 ** -8 * sc).sum())
+                check(tipped <= 1e-5 * e.numel()
+                      and bool((err <= 2 ** -4 * sc).all()),
+                      f"flash {label} bf16 {name}: {tipped} entries past one "
+                      f"rounding of the emulated tiling (at most "
+                      f"{1e-5 * e.numel():.0f}, each within 2^-4)")
+            del emu, o, lse, plain, mine
+        del q, k, v, w, got, again, want
+    return errs
+
+
+def _flash_time(label, b, s, t, h, n, d, causal, window, q_offset):
+    """Device ms of the pair from a CUDA graph (forward; backward) beside
+    its bound, the plain version and SDPA (bf16)."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    sets = _flash_inputs(b, s, t, h, n, d, torch.bfloat16, seed=6, copies=2)
+    fwd = lambda q, k, v, _: fa_mod.flash_fwd(q, k, v, **kw)  # noqa: E731
+    ms = time_ms(fwd, sets, reps=10)
+    bwd_sets = []
+    for q, k, v, do in sets:
+        o, lse = fwd(q, k, v, do)
+        bwd_sets.append((do, q, k, v, o, lse))
+    bwd_ms = time_ms(lambda *a: fa_mod.flash_bwd(*a, **kw), bwd_sets, reps=10)
+    plain_ms = time_ms(lambda q, k, v, _: kref.attend_full_ref(q, k, v, **kw),
+                       sets, reps=3)
+
+    def plain_step(q, k, v, do):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        kref.attend_full_ref(*leaves, **kw).backward(do)
+
+    plain_step_ms = eager_ms(plain_step, [(*st[1:4], st[0])
+                                          for st in bwd_sets], iters=4)
+    mask = None
+    if window is not None or q_offset:
+        i = torch.arange(s, device="cuda")[:, None] + q_offset
+        j = torch.arange(t, device="cuda")[None, :]
+        mask = j <= i if causal else torch.ones_like(j <= i)
+        if window is not None:
+            mask = mask & (j > i - window)
+    lib = lambda q, k, v, _: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+    library_ms = time_ms(lib, sets, reps=10)
+    flops = _flash_flops(b, s, t, h, d, causal, window, q_offset)
+    bound = flops / 989e12 * 1e3
+    bwd_bound = 2.5 * bound
+    plan = fa_mod.plan(d, torch.bfloat16)
+    print(f"[flash] {label}: B={b} S={s} T={t} H={h} N={n} D={d} causal="
+          f"{causal} window={window} q_offset={q_offset}; plan d_pad "
+          f"{plan.d_pad} fwd {tuple(plan.fwd)} dkdv {tuple(plan.dkdv)} dq "
+          f"{tuple(plan.dq)}; bf16 forward {ms:.4f} ms (bound {bound:.4f}, "
+          f"{bound / ms:.1%}), backward {bwd_ms:.4f} ms (bound "
+          f"{bwd_bound:.4f}, {bwd_bound / bwd_ms:.1%}); plain forward "
+          f"{plain_ms:.4f} ms, plain forward+backward (eager) "
+          f"{plain_step_ms:.4f} ms; sdpa forward {library_ms:.4f} ms")
+    del sets, bwd_sets
+    return ms, bwd_ms, plain_ms, library_ms, bound, bwd_bound
+
+
+def _flash_launches():
+    """Launch counts of a full-depth Granite-3-2B Phase-2 step (bkd and kd,
+    4 x 2,048 tokens, AdamW, block remat) and of a prefill over 4 x 2,048
+    tokens."""
+    cfg = registry.get_config("granite-3-2b")
+    student = Transformer.init(cfg, 0, device="cuda")
+    teacher = Transformer.init(cfg, 1, device="cuda")
+    buffer = train._copy(student)
+    opt = optimizers.adamw(3e-4)
+    state = opt.init(student)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2049), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    counts = {}
+    for mode, buf in (("clone", buffer), ("none", None)):
+        step = St.make_phase2_step(cfg, opt, buffer_mode=mode,
+                                   loss_chunk=512)
+        fa_mod.flash_fwd.launches = fa_mod.flash_bwd.launches = 0
+        student, state, m = step(student, teacher, buf, state, batch, 0)
+        check(math.isfinite(float(m["loss"])), f"flash {mode}: loss")
+        counts[mode] = (fa_mod.flash_fwd.launches, fa_mod.flash_bwd.launches)
+    fa_mod.flash_fwd.launches = fa_mod.flash_bwd.launches = 0
+    with torch.inference_mode():
+        Transformer.prefill(cfg, student, {"tokens": batch["tokens"]},
+                            2048 + 64)
+    counts["prefill"] = (fa_mod.flash_fwd.launches, fa_mod.flash_bwd.launches)
+    print(f"[flash] launches (forward, backward): Phase-2 step bkd "
+          f"{counts['clone']}, kd {counts['none']}, prefill 4 x 2,048 "
+          f"{counts['prefill']}")
+    want = {"clone": (160, 40), "none": (120, 40), "prefill": (40, 0)}
+    check(counts == want, f"flash launches {counts}, want {want}")
+    del student, teacher, buffer, state
+    torch.cuda.empty_cache()
+    return sum(n for n, _ in counts.values())
+
+
+def _flash_under_torch_func():
+    """Phases 0 and 1 differentiate through ``torch.func``: vmap(grad)
+    through the pair equals the per-example gradients of the plain
+    version (f32)."""
+    kw = dict(causal=True, window=None, q_offset=0)
+    q, k, v, _ = _flash_inputs(1, 64, 64, 4, 2, 32, torch.float32, seed=7)[0]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    wq = torch.randn(3, 32, 32, generator=gen, device="cuda") / 32 ** 0.5
+
+    def loss(attend, wqi):
+        return attend(q @ wqi, k, v, **kw).square().sum()
+
+    got = torch.func.vmap(torch.func.grad(
+        lambda x: loss(ops.flash_attention, x)))(wq)
+    want = torch.stack([torch.func.grad(
+        lambda x: loss(kref.attend_full_ref, x))(wq[i]) for i in range(3)])
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    check(err <= 1e-5, f"flash under torch.func: relative err {err}")
+    print(f"[flash] vmap(grad) through the pair (f32): relative err {err:.3g}")
+
+
+def phase_flash_attention():
+    """Returns the kernel-table entry of the flash pair at Granite-3-2B's
+    Phase-2 shape."""
+    for case in FLASH_CASES:
+        errs = _flash_check(*case)
+        print(f"[flash] {case[0]}: relative err o, dq, dk, dv f32 "
+              f"{[f'{e:.3g}' for e in errs[torch.float32]]}, bf16 "
+              f"{[f'{e:.3g}' for e in errs[torch.bfloat16]]} by row (the "
+              f"plain version in bf16 {[f'{e:.3g}' for e in errs['plain']]}"
+              f"); bf16 against the emulated tiling {errs['emulated']:.3g} "
+              f"of a row's RMS; each twice, bit for bit")
+    _flash_under_torch_func()
+    times = [_flash_time(*case) for case in FLASH_CASES[:2]]
+    print(f"[flash] compiled: {_flash_build_line()}")
+    ms, bwd_ms, plain_ms, library_ms, bound, bwd_bound = times[0]
+    launches = _flash_launches()
+    return {"name": "flash_fwd + flash_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attn.py",
+            "replaces": None, "launches": launches,
+            "max_abs_err": None, "ms": ms, "bwd_ms": bwd_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bwd_bound_ms": bwd_bound,
+            "bound_by": "bf16 tensor-core FLOPs", "library_ms": library_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4023,8 +4328,9 @@ def main():
     kd_entries[0]["launches"] += kd_cli
     kd_entries[1]["launches"] += kdg_cli
     timed(phase_guard_lint)
+    flash_entry = timed(phase_flash_attention)
     print(json.dumps({"kernels": [entry] + kd_entries + kdq_entries
-                      + [swa_entry, ssd_entry, rglru_entry]}))
+                      + [swa_entry, ssd_entry, rglru_entry, flash_entry]}))
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

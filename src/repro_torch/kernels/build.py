@@ -47,30 +47,36 @@ def toolkit_bin(tool: str) -> str:
     return str(Path(_nvcc()).parent / tool)
 
 
-def source_tag(name: str, csrc: Path = CSRC) -> str:
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def source_tag(name: str, csrc: Path = CSRC, defines=()) -> str:
     """The hash in a library's name: ``<name>.cu``, every header under
-    ``csrc`` (a source may include any of them) and the flags, so that an
-    edited source or header is rebuilt."""
+    ``csrc`` (a source may include any of them) and the flags, macro
+    definitions included, so that an edited source or header is
+    rebuilt."""
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def build(name: str, verbose: bool = False) -> Path:
+def build(name: str, verbose: bool = False, defines=()) -> Path:
     """Compile ``csrc/<name>.cu`` if this source has not been built yet;
-    returns the library's path.  A failed build raises with nvcc's output.
-    With ``verbose`` the compiler's resource report (``-Xptxas -v``) is
-    printed."""
+    returns the library's path.  ``defines`` ("NAME=VALUE" strings) become
+    ``-D`` flags: one source, one library a set of them.  A failed build
+    raises with nvcc's output.  With ``verbose`` the compiler's resource
+    report (``-Xptxas -v``) is printed."""
     source = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"{name}_{source_tag(name)}.so"
+    lib = BUILD_DIR / f"{name}_{source_tag(name, defines=defines)}.so"
     if lib.exists() and not verbose:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+    cmd = [_nvcc(), *_flags(defines), *(("-Xptxas", "-v") if verbose else ()),
            "-o", tmp, str(source)]
     global compiles
     compiles += 1
@@ -86,6 +92,7 @@ def build(name: str, verbose: bool = False) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (built on first call)."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` with ``defines`` (built on
+    first call)."""
+    return ctypes.CDLL(str(build(name, defines=defines)))

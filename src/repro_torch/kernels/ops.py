@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import kd_loss as _kd
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.paged_decode import paged_decode
@@ -21,6 +22,96 @@ from repro_torch.sharding import local as _local
 
 # Devices whose tensors take a kernel's plain version.
 PLAIN = ("cpu", "meta")
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                    q_chunk=512):
+    """Exact full-sequence attention (every attention arch's training
+    forward and serving prefill).  q (B, S, H, D), k/v (B, T, N, D), GQA
+    head ``n * G + g``; query row i sits at position ``q_offset + i``, key
+    j at j (``causal`` keeps j <= i's position, ``window`` j > it -
+    window).  A CPU or ``meta`` tensor takes the plain version, chunked by
+    ``q_chunk`` queries (``ref.attend_full_ref``); a CUDA tensor the flash
+    kernel pair (``flash_fwd``, and ``flash_bwd`` under autograd,
+    ``torch.func`` transforms included), which raises on a shape or dtype
+    it does not take."""
+    if q.device.type in PLAIN:
+        return _ref.attend_full_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, q_chunk=q_chunk)
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)[0]
+
+
+def _fold(x, dim, size):
+    """``x`` with its vmapped dimension ``dim`` (None: not mapped, so
+    expanded to ``size``) merged into its batch dimension."""
+    x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(size * x.shape[1], *x.shape[2:])
+
+
+def _unfold(x, size):
+    return x.reshape(size, x.shape[0] // size, *x.shape[1:])
+
+
+class _FlashAttention(torch.autograd.Function):
+    """O and the log-sum-exp from ``flash_fwd``; dq, dk, dv from
+    ``flash_bwd``.  Saves q, k, v, O and the log-sum-exp only.  Under
+    ``torch.func.vmap`` the mapped dimension folds into the batch, so the
+    kernels see plain tensors at every transform level."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, q_offset):
+        return _fa.flash_fwd(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, q_offset = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, q_offset)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionGrad.apply(do, q, k, v, o, lse,
+                                               *ctx.mask)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, q_offset):
+        n = info.batch_size
+        q, k, v = (_fold(x, dim, n) for x, dim in zip((q, k, v), in_dims))
+        o, lse = _FlashAttention.apply(q, k, v, causal, window, q_offset)
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
+
+
+class _FlashAttentionGrad(torch.autograd.Function):
+    """``flash_bwd`` as a function of its own, so that a backward run under
+    ``torch.func.vmap`` reaches the kernels with plain tensors.  It has no
+    backward of its own (no double backward through the kernels)."""
+
+    @staticmethod
+    def forward(do, q, k, v, o, lse, causal, window, q_offset):
+        return _fa.flash_bwd(do, q, k, v, o, lse, causal=causal,
+                             window=window, q_offset=q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the flash attention kernels have no "
+                                  "double backward")
+
+    @staticmethod
+    def vmap(info, in_dims, do, q, k, v, o, lse, causal, window, q_offset):
+        n = info.batch_size
+        args = (_fold(x, dim, n)
+                for x, dim in zip((do, q, k, v, o, lse), in_dims))
+        grads = _FlashAttentionGrad.apply(*args, causal, window, q_offset)
+        return tuple(_unfold(x, n) for x in grads), (0, 0, 0)
 
 
 def paged_decode_attn(q, k_pool, v_pool, pt, pos, *, window=None):

@@ -20,7 +20,6 @@ where they do not; a sequence-sharded cache is gathered for them).
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
@@ -30,9 +29,6 @@ from repro_torch.kernels import ops
 from repro_torch.nn.rope import apply_mrope, apply_rope
 from repro_torch.sharding import local as _local
 from repro_torch.sharding.rules import constrain, logical_to_spec, placements
-
-NEG_INF = -1e30
-
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
@@ -208,24 +204,8 @@ def decode_positions(rope: str, pos):
     return positions
 
 
-def _attend_chunk(q, k, v, q_pos, k_pos, cfg: AttnConfig):
-    """q: (B, Q, N, G, D); k/v: (B, T, N, D); positions 1-D per side."""
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    scores = torch.einsum("bqngd,btnd->bngqt", q, k) * scale
-    scores = scores.float()
-    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
-                      device=q.device)
-    if cfg.causal:
-        mask = mask & (k_pos[None, :] <= q_pos[:, None])
-    if cfg.window is not None:
-        mask = mask & (k_pos[None, :] > q_pos[:, None] - cfg.window)
-    scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bngqt,btnd->bqngd", probs, v)
-
-
 def attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
-    """Exact attention, chunked over queries.  q: (B, S, H, D), k/v
+    """Exact attention (:func:`_attend_full`).  q: (B, S, H, D), k/v
     (B, T, N, D).  Under a mesh on every rank's batch rows and whole
     kv-head groups (as k is placed; the sequence gathered), autograd
     included."""
@@ -243,23 +223,14 @@ def attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
 
 
 def _attend_full(q, k, v, cfg: AttnConfig, q_offset=0):
-    """One ``attention`` span a call: every forward, and every remat
-    recompute in a backward pass."""
+    """``ops.flash_attention``: the flash kernel pair on a CUDA tensor, the
+    plain chunk loop (``cfg.q_chunk`` queries a chunk) on a CPU one.  One
+    ``attention`` span a call: every forward, and every remat recompute in
+    a backward pass."""
     with spans.span("attention"):
-        b, s, h, d = q.shape
-        t = k.shape[1]
-        n, g = cfg.kv_heads, cfg.q_groups
-        qg = q.reshape(b, s, n, g, d)
-        chunk = min(cfg.q_chunk, s)
-        if s % chunk != 0:
-            chunk = s  # no chunking for ragged sizes
-        k_pos = torch.arange(t, device=q.device)
-        outs = []
-        for start in range(0, s, chunk):
-            q_pos = q_offset + start + torch.arange(chunk, device=q.device)
-            outs.append(_attend_chunk(qg[:, start:start + chunk], k, v,
-                                      q_pos, k_pos, cfg))
-        return torch.cat(outs, dim=1).reshape(b, s, h, d)
+        return ops.flash_attention(q, k, v, causal=cfg.causal,
+                                   window=cfg.window, q_offset=q_offset,
+                                   q_chunk=cfg.q_chunk)
 
 
 def forward(params, cfg: AttnConfig, x, positions):

@@ -1551,3 +1551,237 @@ def test_meshed_serving_on_card_launches_the_kernels_through_local_map(
     assert [(r.rid, r.out) for r in got] == [(r.rid, r.out) for r in want]
     assert kernel.launches == cfg.num_layers * engine.decode_ticks > 0
     assert len(calls) >= kernel.launches
+
+
+# -- the flash attention pair --------------------------------------------------
+
+from repro_torch.kernels import flash_attn as fa  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+# (B, S, T, H, N, D, causal, window, q_offset): Granite-3-2B's Phase 2 and
+# Qwen3-14B's prefill, then the other head dims of the port's attention
+# archs (HuBERT 80 bidirectional, Nemotron 192, RecurrentGemma's local 256
+# with a window), a prefix (the paged prefill: q_offset, T > S) with a
+# window, and ragged S and T.
+FLASH_CASES = [
+    (4, 2048, 2048, 32, 8, 64, True, None, 0),
+    (8, 2048, 2048, 40, 8, 128, True, None, 0),
+    (2, 300, 300, 16, 16, 80, False, None, 0),
+    (2, 256, 256, 24, 2, 192, True, None, 0),
+    (2, 320, 320, 16, 1, 256, True, 100, 0),
+    (2, 77, 333, 8, 2, 64, True, 150, 256),
+    (3, 131, 131, 10, 2, 128, True, None, 0),
+]
+
+
+def _flash_case(case, dtype, device, seed=0):
+    b, s, t, h, n, d = case[:6]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = lambda *sh: torch.randn(*sh, generator=gen,  # noqa: E731
+                                   device=device).to(dtype)
+    return (draw(b, s, h, d), draw(b, t, n, d), draw(b, t, n, d),
+            draw(b, s, h, d), dict(causal=case[6], window=case[7],
+                                   q_offset=case[8]))
+
+
+def _grads(attend, q, k, v, w, kw):
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = attend(*leaves, **kw)
+    (out.float() * w.float()).sum().backward()
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+def _row_scale(want, floor):
+    """Each row's (the last dim's) RMS in ``want``, floored at ``floor``
+    times the whole tensor's RMS and at 1e-30."""
+    want = want.float()
+    rms = want.square().mean(-1).sqrt()
+    return rms.clamp_min(floor * want.square().mean().sqrt()).clamp_min(1e-30)
+
+
+def _row_err(got, want, floor):
+    """Each row's largest error over that row's scale (``_row_scale``),
+    flat."""
+    return ((got.float() - want.float()).abs().amax(-1)
+            / _row_scale(want, floor)).flatten()
+
+
+def _quality(errs):
+    """(99.9th percentile, largest) of the rows' errors."""
+    return torch.quantile(errs, 0.999).item(), errs.max().item()
+
+
+def _dq_of_output_delta(q, k, w, o, want, kw):
+    """The f32 dq of the function the pair's backward differentiates
+    (FlashAttention-2's): delta = rowsum(dO * O) taken from the bf16
+    output ``o``, not from the f32 version's output O.  delta_i moves by
+    dO_i . (o_i - O_i), so dq_i moves by that times -sum_j P_ij k_j /
+    sqrt(D), sum_j P_ij k_j being the f32 attention with k as its values.
+    In the first query rows, whose few terms nearly cancel, this is most
+    of the row."""
+    q32, k32 = q.float(), k.float()
+    pk = ref.attend_full_ref(q32, k32, k32, **kw)
+    dd = ((o.float() - want[0]) * w.float()).sum(-1, keepdim=True)
+    return want[1] - dd * pk / q.shape[-1] ** 0.5
+
+
+def _emulated(q, k, v, w, kw):
+    """The pair's tiling in plain PyTorch (``ref.flash_fwd_tiled`` /
+    ``flash_bwd_tiled``) with the plan's tiles, on the same inputs: the
+    kernels' casts (P and dS rounded to the inputs' dtype), summed in
+    another order."""
+    p = fa.plan(q.shape[-1], q.dtype)
+    o, lse = ref.flash_fwd_tiled(q, k, v, block_m=p.fwd.block_m,
+                                 block_n=p.fwd.block_n, **kw)
+    grads = ref.flash_bwd_tiled(w, q, k, v, o, lse, **kw,
+                                dkdv_blocks=(p.dkdv.block_m, p.dkdv.block_n),
+                                dq_blocks=(p.dq.block_m, p.dq.block_n))
+    return [o, *grads], lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_pair_matches_plain(cuda, case, dtype):
+    """Output and gradients against the plain version's, computed in f32
+    from the same inputs.  f32: to float error (relative to the largest
+    entry).  bf16, row by row: each row's largest error over its RMS
+    (floored at 1% of the tensor's, for rows that are 0), its 99.9th
+    percentile and its largest no larger than the plain version's in bf16
+    (scores rounded to bf16), each against the exact f32 version of what
+    it computes (for the pair's dq, ``_dq_of_output_delta``)."""
+    q, k, v, w, kw = _flash_case(case, dtype, cuda)
+    got = _grads(ops.flash_attention, q, k, v, w, kw)
+    want = _grads(ref.attend_full_ref, *(x.float() for x in (q, k, v, w)),
+                  kw)
+    if dtype == torch.float32:
+        errs = [_rel(a, e) for a, e in zip(got, want)]
+        assert errs[0] <= 1e-5 and max(errs[1:]) <= 1e-4, errs
+        return
+    plain = _grads(ref.attend_full_ref, q, k, v, w, kw)
+    mine = list(want)
+    mine[1] = _dq_of_output_delta(q, k, w, got[0], want, kw)
+    for name, a, e, p, e0 in zip(("o", "dq", "dk", "dv"), got, mine, plain,
+                                 want):
+        kq = _quality(_row_err(a, e, 1e-2))
+        pq = _quality(_row_err(p, e0, 1e-2))
+        assert kq[0] <= pq[0] and kq[1] <= pq[1], (name, kq, pq)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_bf16_pair_matches_its_emulation(cuda, case):
+    """The bf16 kernels against their tiling emulated on the same bf16
+    inputs, which rounds P and dS where the kernels do.  Each entry lies
+    within one bf16 rounding of the emulation's (2^-7 of it) plus one
+    rounding of a weight (2^-8) on its row's RMS, floored at the tensor's
+    (a row of dq whose terms cancel is small beside them), but for at most
+    1e-5 of the entries: there the f32 sums, run in another order (and
+    with the hardware's exp2), tipped the rounding of a large weight of P
+    or dS, and the entry still lies within 2^-4 of its row's scale.  The
+    log-sum-exp to f32 error."""
+    q, k, v, w, kw = _flash_case(case, torch.bfloat16, cuda)
+    got = _grads(ops.flash_attention, q, k, v, w, kw)
+    want, want_lse = _emulated(q, k, v, w, kw)
+    for name, a, e in zip(("o", "dq", "dk", "dv"), got, want):
+        a, e = a.float(), e.float()
+        scale = _row_scale(e, 1.0)[..., None]
+        err = (a - e).abs() - 2 ** -7 * e.abs()
+        tipped = int((err > 2 ** -8 * scale).sum())
+        assert tipped <= 1e-5 * e.numel(), (name, tipped, e.numel())
+        assert (err <= 2 ** -4 * scale).all(), (
+            name, _row_err(a, e, 1.0).max().item())
+    _, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 80, 128, 192, 256])
+def test_flash_plan_matches_the_library(cuda, d, dtype):
+    """The wrapper's plan is the tiles the built library runs."""
+    assert fa.library_plan(d, dtype) == fa.plan(d, dtype)
+
+
+def test_flash_gradient_repeats_bit_for_bit(cuda):
+    """No float atomics: every sum is taken inside one program."""
+    q, k, v, w, kw = _flash_case(FLASH_CASES[0], torch.bfloat16, cuda, 1)
+    first = _grads(ops.flash_attention, q, k, v, w, kw)
+    second = _grads(ops.flash_attention, q, k, v, w, kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_pair_replays_from_a_cuda_graph(cuda):
+    q, k, v, w, kw = _flash_case(FLASH_CASES[5], torch.bfloat16, cuda, 2)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    fa.flash_bwd(w, q, k, v, o, lse, **kw)
+    torch.cuda.synchronize()
+    graph, out = _capture(lambda: (fa.flash_fwd(q, k, v, **kw),
+                                   fa.flash_bwd(w, q, k, v, o, lse, **kw)))
+    q.mul_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    (o2, lse2), grads = fa.flash_fwd(q, k, v, **kw), fa.flash_bwd(
+        w, q, k, v, o, lse, **kw)
+    assert torch.equal(out[0][0], o2) and torch.equal(out[0][1], lse2)
+    assert all(torch.equal(a, b) for a, b in zip(out[1], grads))
+
+
+def test_flash_attention_on_cuda_never_takes_the_plain_path(cuda,
+                                                           monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain path taken on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "attend_full_ref", refuse)
+    q, k, v, w, kw = _flash_case(FLASH_CASES[6], torch.bfloat16, cuda, 3)
+    before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+    grads = _grads(ops.flash_attention, q, k, v, w, kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_flash_wrappers_check_inputs(cuda):
+    q, k, v, w, kw = _flash_case(FLASH_CASES[6], torch.bfloat16, cuda, 4)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q, k.float(), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_fwd(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="kv heads"):
+        fa.flash_fwd(q[:, :, :9], k, v)
+    with pytest.raises(ValueError, match="keeps no key"):
+        fa.flash_fwd(q, k[:, :40], v[:, :40], window=8, q_offset=0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_fwd(q[..., :60], k[..., :60], v[..., :60])
+    o, lse = fa.flash_fwd(q, k, v)
+    # an operand in another layout is copied, not refused
+    k_t = k.transpose(1, 3).contiguous().transpose(1, 3)
+    o_t, lse_t = fa.flash_fwd(q, k_t, v)
+    assert torch.equal(o_t, o) and torch.equal(lse_t, lse)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_bwd(w[:, :5], q, k, v, o, lse)
+
+
+def test_attention_layers_launch_the_pair(cuda):
+    """A SMOKE Granite step's forward, backward (block remat) and a
+    prefill: one forward launch a layer a forward (the remat recompute
+    included), one backward launch a layer, none in the prefill."""
+    cfg = registry.get_smoke_config("granite-3-2b")
+    params = Transformer.init(cfg, 0, device="cuda")
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device="cuda")
+    fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+    logits, _ = Transformer.apply(cfg, params, {"tokens": tokens})
+    logits.float().square().mean().backward()
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    remat = 2 if cfg.remat == "block" else 1
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (
+        remat * layers, layers)
+    fa.flash_fwd.launches = fa.flash_bwd.launches = 0
+    with torch.inference_mode():
+        Transformer.prefill(cfg, params, {"tokens": tokens}, 80)
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (layers, 0)
