@@ -1,5 +1,9 @@
 """Operation and byte counts from shapes, and the H100's published peaks.
 
+The counts of a forward pass, a prefill and a served token are the dense
+decoder's; the runners take them through the configuration's architecture
+module (``spec.architecture``), which may use them or count its own.
+
 The yardstick lives here and not in the program, so that a change to the
 program cannot move it.  Peaks: NVIDIA H100 SXM data sheet, dense, at the
 700 W limit (989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor cores,
@@ -28,9 +32,9 @@ def matmul_flops_per_token(k: dict, unembed: bool = True) -> float:
 def causal_attention_flops(k: dict, seq: int) -> float:
     """Forward FLOPs of causal attention over one sequence of ``seq``
     tokens: QK^T and PV over the seq (seq + 1) / 2 pairs that the mask
-    keeps, all layers."""
+    keeps, in every layer that runs attention."""
     pairs = seq * (seq + 1) / 2
-    return k["layers"] * 2 * 2 * k["h"] * k["hd"] * pairs
+    return k["attn_layers"] * 2 * 2 * k["h"] * k["hd"] * pairs
 
 
 def forward_flops(k: dict, batch: int, seq: int) -> float:
@@ -39,19 +43,21 @@ def forward_flops(k: dict, batch: int, seq: int) -> float:
                     + causal_attention_flops(k, seq))
 
 
-def phase2_step_flops(k: dict, batch: int, seq: int, buffer: bool) -> float:
+def phase2_step_flops(k: dict, batch: int, seq: int, buffer: bool,
+                      forward=forward_flops) -> float:
     """Useful FLOPs of one Phase-2 step: the student's forward and
     backward (twice the forward), the teacher's forward and, with the
-    buffer, the frozen clone's forward.  The block recompute and the
+    buffer, the frozen clone's forward, each ``forward(k, batch, seq)``
+    (the architecture module's count).  The block recompute and the
     loss's recompute are not counted."""
-    fwd = forward_flops(k, batch, seq)
+    fwd = forward(k, batch, seq)
     return fwd * (3 + 1 + (1 if buffer else 0))
 
 
 def decode_token_flops(k: dict, context: int) -> float:
     """One served token fed at a position that sees ``context`` keys."""
     return (matmul_flops_per_token(k)
-            + k["layers"] * 2 * 2 * k["h"] * k["hd"] * context)
+            + k["attn_layers"] * 2 * 2 * k["h"] * k["hd"] * context)
 
 
 def prefill_flops(k: dict, prompt: int) -> float:

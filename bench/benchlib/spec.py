@@ -1,9 +1,11 @@
 """The benchmark's data: the manifest (``BENCHMARK.json``), one file a
 configuration, one a traffic mix, one a cell's correctness limits, and one
-reader a metric, each found by its name.
+reader a metric, each found by its name; and one architecture module a
+configuration, found by the path in its ``reference`` key.
 
 A cell names a configuration and a traffic mix; nothing here knows any of
-them by name, so a new cell, configuration, mix or metric is a new file.
+them by name, so a new cell, configuration, architecture, mix or metric is
+a new file.
 """
 
 from __future__ import annotations
@@ -71,12 +73,43 @@ def read_json(path: Path) -> dict:
         return json.load(f)
 
 
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def metric_reader(name: str):
     """The module ``metrics/<name>.py``: its ``read(run)`` returns the
     metric's value, or None where the run holds nothing to read."""
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}",
-                                                  path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
+    return _load(BENCH / "metrics" / f"{name}.py", f"bench_metric_{name}")
+
+
+_ARCHITECTURES = {}
+
+
+def architecture(cell_or_conf, *needs: str):
+    """The architecture module of a configuration (or of a cell's): the
+    file its ``reference`` key names, relative to ``bench/``, loaded once
+    a process.  It provides ``dims``, ``leaf_specs``, the FLOP counts and
+    the plain reference (the docstrings under ``reference/`` say what each
+    takes and returns); ``needs`` names further functions the caller
+    runs, and a module without one of them is refused here, at set-up.
+    The module is handed the yardstick's formulas as its ``flops``
+    attribute, so that it imports nothing but torch and the standard
+    library."""
+    conf = getattr(cell_or_conf, "config", cell_or_conf)
+    path = (BENCH / conf["reference"]).resolve()
+    if path not in _ARCHITECTURES:
+        from benchlib import flops
+        module = _load(path, f"bench_arch_{path.stem}")
+        module.flops = flops
+        _ARCHITECTURES[path] = module
+    module = _ARCHITECTURES[path]
+    missing = [f for f in ("dims", "leaf_specs") + needs
+               if not callable(getattr(module, f, None))]
+    if missing:
+        raise ValueError(f"architecture module {conf['reference']} has no "
+                         f"{', '.join(missing)}")
     return module

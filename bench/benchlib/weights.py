@@ -1,9 +1,10 @@
 """Weights and token batches drawn from the run's seed, on the device.
 
 The benchmark makes the inputs and hands the same to the program and to the
-plain reference.  Parameters come in the program's tree (nested dicts,
-layers stacked on a leading axis, the JAX package's key names), in the
-configuration's parameter type, one ``normal_`` call a leaf from a
+plain reference.  Parameters come in the program's tree, whose leaves the
+configuration's architecture module lists (for the dense decoder: nested
+dicts, layers stacked on a leading axis, the JAX package's key names), in
+the configuration's parameter type, one ``normal_`` call a leaf from a
 generator of the leaf's own: any leaf can be drawn again alone, so the
 reference and the change norms need no second copy of the model.
 """
@@ -11,9 +12,10 @@ reference and the change norms need no second copy of the model.
 from __future__ import annotations
 
 import hashlib
-import math
 
 import torch
+
+from benchlib import spec
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -25,18 +27,9 @@ def mix(*parts) -> int:
 
 
 def dims(conf: dict) -> dict:
-    """The widths the tree, the operation counts and the reference use,
-    from the configuration file's published keys."""
-    d = conf["hidden_size"]
-    h = conf["num_attention_heads"]
-    vocab = conf["vocab_size"]
-    pad = conf["program"].get("vocab_pad", 256)
-    return {"d": d, "h": h, "n": conf["num_key_value_heads"],
-            "hd": conf.get("head_dim") or d // h,
-            "ff": conf["intermediate_size"],
-            "layers": conf["num_hidden_layers"],
-            "vocab": vocab, "vocab_padded": -(-vocab // pad) * pad,
-            "qk_norm": bool(conf["program"].get("qk_norm", False))}
+    """The configuration's widths (``Run.dims``), as its architecture
+    module states them."""
+    return spec.architecture(conf).dims(conf)
 
 
 def program_kwargs(conf: dict) -> dict:
@@ -47,29 +40,10 @@ def program_kwargs(conf: dict) -> dict:
 
 
 def leaf_specs(conf: dict):
-    """[(path, shape, init)] of every parameter leaf; ``init`` is a float
+    """[(path, shape, init)] of every parameter leaf, as the
+    configuration's architecture module states them; ``init`` is a float
     standard deviation or "ones"."""
-    k = dims(conf)
-    d, h, n, hd, ff, L = k["d"], k["h"], k["n"], k["hd"], k["ff"], k["layers"]
-    vp = k["vocab_padded"]
-    sd = 1.0 / math.sqrt(d)
-    blk = ("blocks", "b0")
-    specs = [(("embed", "table"), (vp, d), 0.02),
-             (blk + ("ln1", "scale"), (L, d), "ones"),
-             (blk + ("mixer", "wq"), (L, d, h, hd), sd),
-             (blk + ("mixer", "wk"), (L, d, n, hd), sd),
-             (blk + ("mixer", "wv"), (L, d, n, hd), sd),
-             (blk + ("mixer", "wo"), (L, h, hd, d), sd)]
-    if k["qk_norm"]:
-        specs += [(blk + ("mixer", "q_norm"), (L, hd), "ones"),
-                  (blk + ("mixer", "k_norm"), (L, hd), "ones")]
-    specs += [(blk + ("ln2", "scale"), (L, d), "ones"),
-              (blk + ("mlp", "up", "w"), (L, d, ff), sd),
-              (blk + ("mlp", "gate", "w"), (L, d, ff), sd),
-              (blk + ("mlp", "down", "w"), (L, ff, d), 1.0 / math.sqrt(ff)),
-              (("ln_f", "scale"), (d,), "ones"),
-              (("unembed", "w"), (d, vp), sd)]
-    return specs
+    return spec.architecture(conf).leaf_specs(conf)
 
 
 def draw_leaf(conf: dict, seed: int, tag: str, index: int, device):

@@ -29,5 +29,5 @@ def read(run):
         return None
     tr = run.traffic
     layer = tr["batch"] * flops.causal_attention_flops(
-        dict(run.dims, layers=1), tr["seq"])
+        dict(run.dims, attn_layers=1), tr["seq"])
     return 100 * (n_f + 2.5 * n_b) * layer / flops.PEAK_BF16 / t

@@ -1,7 +1,7 @@
 """``swa_decode``'s share of its roofline in the traced ticks: each call's
 least time (the K/V rows the active slots read up to their positions,
-plus q and out, at 3.35 TB/s) over the device time of its split and
-combine kernels."""
+plus q and out, at 3.35 TB/s), one call a layer that runs attention a
+tick, over the device time of its split and combine kernels."""
 
 from benchlib import flops
 
@@ -20,7 +20,7 @@ def read(run):
         return None
     k = run.dims
     slots = run.traffic["engine"]["slots"]
-    bound = sum(k["layers"] * flops.swa_decode_bound(
+    bound = sum(k["attn_layers"] * flops.swa_decode_bound(
         sum(tick["rows"]), slots, k["n"], k["h"] // k["n"], k["hd"], 2)
         for tick in run.trace_ticks if tick["rows"])
     return 100 * bound / t

@@ -12,6 +12,35 @@ product's operands rounded to float8 e4m3 under one scale a tensor: the
 step below the configuration's bfloat16.
 
 Imports nothing but torch and the standard library.
+
+It is the first architecture module: a configuration file names it in its
+``reference`` key and the benchmark reaches everything that depends on the
+architecture through it (``benchlib.spec.architecture``).  An architecture
+module provides:
+
+- ``dims(conf)``: the dict a run carries as ``Run.dims``, which the FLOP
+  counts and the metric readers read; it holds ``layers`` (blocks),
+  ``attn_layers`` (blocks that run attention), the attention widths ``h``,
+  ``n``, ``hd`` and ``d``, ``vocab`` and ``vocab_padded``.
+- ``leaf_specs(conf)``: [(path, shape, init)] of every parameter leaf in
+  the program's tree, in the order the leaves are drawn (each leaf's
+  generator is seeded by its index); ``init`` is a standard deviation or
+  "ones".
+- ``forward_flops(k, batch, seq)``, ``prefill_flops(k, prompt)`` and
+  ``decode_token_flops(k, context)``: useful FLOPs of a forward pass, of a
+  prompt's prefill and of one served token, from ``k = dims(conf)``.
+- ``served_logit_gaps(conf, params, sequences, served, precs)``: the
+  serving comparison (below).
+- ``follow_steps(conf, traffic, names, student_leaf, teacher, buffer,
+  batch_of, steps, prec)``: the Phase-2 comparison (below); a module for
+  serving only leaves it out, and a Phase-2 cell refuses it at set-up.
+
+Several kinds of layer, expert leaves and attention in only some layers
+are the module's own business: its ``leaf_specs`` lists every leaf, its
+``dims`` counts ``attn_layers``, and its FLOP counts take the active
+experts only.  The loader hands the module the yardstick's formulas
+(``benchlib/flops.py``) as ``flops``; this one's counts are those
+formulas.
 """
 
 from __future__ import annotations
@@ -22,6 +51,63 @@ import torch
 import torch.utils.checkpoint
 
 E4M3_MAX = 448.0
+# the yardstick's formulas (``benchlib/flops.py``), set by the loader
+flops = None
+
+
+def dims(conf: dict) -> dict:
+    """The widths the tree, the operation counts and the reference use,
+    from the configuration file's published keys; every layer runs
+    attention."""
+    d = conf["hidden_size"]
+    h = conf["num_attention_heads"]
+    vocab = conf["vocab_size"]
+    pad = conf["program"].get("vocab_pad", 256)
+    layers = conf["num_hidden_layers"]
+    return {"d": d, "h": h, "n": conf["num_key_value_heads"],
+            "hd": conf.get("head_dim") or d // h,
+            "ff": conf["intermediate_size"],
+            "layers": layers, "attn_layers": layers,
+            "vocab": vocab, "vocab_padded": -(-vocab // pad) * pad,
+            "qk_norm": bool(conf["program"].get("qk_norm", False))}
+
+
+def leaf_specs(conf: dict):
+    """[(path, shape, init)] of every parameter leaf: the program's tree,
+    layers stacked on a leading axis under ``blocks.b0``."""
+    k = dims(conf)
+    d, h, n, hd, ff, L = k["d"], k["h"], k["n"], k["hd"], k["ff"], k["layers"]
+    vp = k["vocab_padded"]
+    sd = 1.0 / math.sqrt(d)
+    blk = ("blocks", "b0")
+    specs = [(("embed", "table"), (vp, d), 0.02),
+             (blk + ("ln1", "scale"), (L, d), "ones"),
+             (blk + ("mixer", "wq"), (L, d, h, hd), sd),
+             (blk + ("mixer", "wk"), (L, d, n, hd), sd),
+             (blk + ("mixer", "wv"), (L, d, n, hd), sd),
+             (blk + ("mixer", "wo"), (L, h, hd, d), sd)]
+    if k["qk_norm"]:
+        specs += [(blk + ("mixer", "q_norm"), (L, hd), "ones"),
+                  (blk + ("mixer", "k_norm"), (L, hd), "ones")]
+    specs += [(blk + ("ln2", "scale"), (L, d), "ones"),
+              (blk + ("mlp", "up", "w"), (L, d, ff), sd),
+              (blk + ("mlp", "gate", "w"), (L, d, ff), sd),
+              (blk + ("mlp", "down", "w"), (L, ff, d), 1.0 / math.sqrt(ff)),
+              (("ln_f", "scale"), (d,), "ones"),
+              (("unembed", "w"), (d, vp), sd)]
+    return specs
+
+
+def forward_flops(k: dict, batch: int, seq: int) -> float:
+    return flops.forward_flops(k, batch, seq)
+
+
+def prefill_flops(k: dict, prompt: int) -> float:
+    return flops.prefill_flops(k, prompt)
+
+
+def decode_token_flops(k: dict, context: int) -> float:
+    return flops.decode_token_flops(k, context)
 
 
 def _fp8(x):

@@ -7,7 +7,9 @@ The cell (``BENCHMARK.json``) names a configuration file and a traffic
 file; the traffic file names its runner (``runners/<runner>.py``), which
 builds the program (``repro_torch``, under ``src/``) from the seed, warms
 it up, measures for ``--seconds`` seconds and checks what the timed path
-produced against the plain reference (``reference/``).  With ``--trace 0``
+produced against the plain reference: the architecture module that the
+configuration's ``reference`` key names (under ``reference/``), which also
+states the parameter tree and the FLOP counts.  With ``--trace 0``
 the line holds the cell's end-to-end metrics, with ``--trace 1`` its
 per-layer metrics (a short traced sub-window follows the window).  Each
 metric is read by ``metrics/<name>.py``.

@@ -17,8 +17,11 @@ import time
 
 import torch
 
-from benchlib import compare, flops, record, weights
+from benchlib import compare, flops, record, spec, weights
 from benchlib.record import Run
+
+# what this runner asks of the configuration's architecture module
+NEEDS = ("forward_flops", "follow_steps")
 
 
 def _adamw(traffic):
@@ -89,14 +92,14 @@ def checked_steps(cell, seed, device, step, state, feed):
 
 def reference(cell, seed, device, feed, prec="f32"):
     """The plain reference's readings over the same steps and feed."""
-    from reference import dense_decoder
     conf, tr = cell.config, cell.traffic
+    arch = spec.architecture(cell, "follow_steps")
     clone = tr["buffer_mode"] == "clone"
     teacher = weights.draw_params(conf, seed, "teacher", device)
     buffer = (weights.draw_params(conf, seed, "student", device)
               if clone else None)
     ref_tr = dict(tau=tr["tau"], lr=tr["adamw"]["lr"], **_adamw(tr))
-    losses, grads, leaves = dense_decoder.follow_steps(
+    losses, grads, leaves = arch.follow_steps(
         conf, ref_tr, weights.leaf_names(conf),
         lambda j: weights.draw_leaf(conf, seed, "student", j, device),
         teacher, buffer, feed, tr["checked_steps"], prec=prec)
@@ -110,7 +113,8 @@ def reference(cell, seed, device, feed, prec="f32"):
 
 def run(cell, seed, seconds, trace, device, t0):
     tr = cell.traffic
-    k = weights.dims(cell.config)
+    arch = spec.architecture(cell, *NEEDS)
+    k = arch.dims(cell.config)
     clock = record.Clock(device)
     step, state, feed = build(cell, seed, device)
     prog = checked_steps(cell, seed, device, step, state, feed)
@@ -118,7 +122,8 @@ def run(cell, seed, seconds, trace, device, t0):
     rec = Run(kind="phase2", dims=k, traffic=tr,
               setup_s=time.perf_counter() - t0,
               step_flops=flops.phase2_step_flops(
-                  k, tr["batch"], tr["seq"], tr["buffer_mode"] == "clone"))
+                  k, tr["batch"], tr["seq"], tr["buffer_mode"] == "clone",
+                  arch.forward_flops))
     setup_peak = record.memory(device)
     record.reset_peak(device)
     i = tr["checked_steps"]

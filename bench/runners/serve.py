@@ -35,8 +35,11 @@ import time
 import numpy as np
 import torch
 
-from benchlib import compare, flops, record, streams, weights
+from benchlib import compare, record, spec, streams, weights
 from benchlib.record import Run
+
+# what this runner asks of the configuration's architecture module
+NEEDS = ("prefill_flops", "decode_token_flops", "served_logit_gaps")
 
 
 class Book:
@@ -82,9 +85,9 @@ class Book:
         return rec
 
 
-def _tick_flops(k, rec):
-    return (sum(flops.prefill_flops(k, p) for p in rec["prompts"])
-            + sum(flops.decode_token_flops(k, c) for c in rec["rows"]))
+def _tick_flops(arch, k, rec):
+    return (sum(arch.prefill_flops(k, p) for p in rec["prompts"])
+            + sum(arch.decode_token_flops(k, c) for c in rec["rows"]))
 
 
 def session(cell, seed, device):
@@ -116,7 +119,8 @@ def session(cell, seed, device):
 
 def run(cell, seed, seconds, trace, device, t0):
     tr = cell.traffic
-    k = weights.dims(cell.config)
+    arch = spec.architecture(cell, *NEEDS)
+    k = arch.dims(cell.config)
     engine, book, requests = session(cell, seed, device)
     clock = record.Clock(device)
     clock.sync()
@@ -135,7 +139,7 @@ def run(cell, seed, seconds, trace, device, t0):
     rec.window_s = end - start
     rec.window_peak_bytes = record.memory(device)
     rec.memory_peak_bytes = max(setup_peak, rec.window_peak_bytes)
-    rec.flops = sum(_tick_flops(k, t) for t in rec.ticks)
+    rec.flops = sum(_tick_flops(arch, k, t) for t in rec.ticks)
     for rid, t in book.first.items():
         if start <= t <= end:
             rec.ttft_s.append(t - book.handed[rid])
@@ -217,10 +221,10 @@ def sequences(sample, device):
 def widest_gaps(conf, seed, device, sample, precs=("f32",)):
     """{precision: widest gap}: "f32" for the served tokens, and for each
     further precision the gap of the tokens that precision puts first."""
-    from reference import dense_decoder
+    arch = spec.architecture(conf, "served_logit_gaps")
     params = weights.draw_params(conf, seed, "weights", device)
     seqs, served = sequences(sample, device)
-    gaps = dense_decoder.served_logit_gaps(conf, params, seqs, served, precs)
+    gaps = arch.served_logit_gaps(conf, params, seqs, served, precs)
     out = {"f32": float(max(g.max() for g, _ in gaps))}
     for p in precs[1:]:
         out[p] = float(max(o[p].max() for _, o in gaps))
